@@ -1,7 +1,8 @@
-"""Run every BASELINE.json config end-to-end on the current device.
+"""Run every BASELINE.json config end-to-end on the accelerator.
 
-Prints one JSON line per config (bench.py remains the driver's single-line
-flagship benchmark). Usage: python benchmarks.py [--steps N] [--batch N]
+Prints one JSON line per config, each naming the device (bench.py remains
+the single-line flagship benchmark). Refuses to time on a CPU backend.
+Usage: python benchmarks.py [--steps N] [--batch N]
 """
 
 from __future__ import annotations
@@ -12,15 +13,15 @@ import time
 
 import numpy as np
 
-from bench import _test_image
+from bench import _test_image, device_info
 
 
 def run_single(name: str, config, img, max_steps: int) -> dict:
     import jax
 
-    from snesimage_tpu.core import pipeline
-    from snesimage_tpu.core.refine import error_of, make_reference_pyramid
-    from snesimage_tpu.core.state import new_state
+    from snesimage.core import pipeline
+    from snesimage.core.refine import error_of, make_reference_pyramid
+    from snesimage.core.state import new_state
 
     # warm-up (compile)
     st = new_state(img, config)
@@ -28,7 +29,7 @@ def run_single(name: str, config, img, max_steps: int) -> dict:
     st = pipeline.cluster(st, config)
     refp = make_reference_pyramid(st)
     st, _ = pipeline.optimize(st, config, refp=refp, max_steps=1)
-    np.asarray(st.palette_map)  # hard fence
+    jax.block_until_ready(st.palette_map)
 
     t0 = time.perf_counter()
     st = new_state(img, config)
@@ -36,7 +37,7 @@ def run_single(name: str, config, img, max_steps: int) -> dict:
     st = pipeline.cluster(st, config)
     refp = make_reference_pyramid(st)
     st, errors = pipeline.optimize(st, config, refp=refp, max_steps=max_steps)
-    np.asarray(st.palette_map)  # hard fence
+    jax.block_until_ready(st.palette_map)
     elapsed = time.perf_counter() - t0
     return {
         "config": name,
@@ -50,7 +51,7 @@ def run_single(name: str, config, img, max_steps: int) -> dict:
 def run_batched(name: str, config, imgs, max_steps: int, chunk: int) -> dict:
     import jax
 
-    from snesimage_tpu.parallel import batch as pb
+    from snesimage.parallel import batch as pb
 
     # warm-up on one chunk
     _ = pb.batched_run(imgs[:chunk], config, max_steps=max_steps)
@@ -60,7 +61,7 @@ def run_batched(name: str, config, imgs, max_steps: int, chunk: int) -> dict:
         states, errs = pb.batched_run(
             imgs[lo : lo + chunk], config, max_steps=max_steps
         )
-        np.asarray(states.palette_map)  # hard fence
+        jax.block_until_ready(states.palette_map)
         errors.append(errs[-1])
     elapsed = time.perf_counter() - t0
     return {
@@ -82,7 +83,11 @@ def main() -> None:
     )
     args = ap.parse_args()
 
-    from snesimage_tpu.config import QuantConfig
+    from snesimage.config import QuantConfig
+
+    device = device_info()
+    if device["platform"] == "cpu":
+        raise SystemExit("no accelerator: refusing to time on the CPU")
 
     img = _test_image()
     only = set(args.only.split(",")) if args.only else None
@@ -100,7 +105,8 @@ def main() -> None:
     for tag, name, config in singles:
         if not wanted(tag):
             continue
-        print(json.dumps(run_single(name, config, img, args.steps)), flush=True)
+        res = run_single(name, config, img, args.steps)
+        print(json.dumps({**res, "device": device}), flush=True)
 
     # Config 5: NES 4x3, batched images
     if wanted("c5"):
@@ -109,15 +115,11 @@ def main() -> None:
             [_test_image(seed=int(s)) for s in rng.integers(0, 1 << 31, args.batch)]
         )
         config = QuantConfig(subpalette_count=4, subpalette_size=3, nes=True)
-        print(
-            json.dumps(
-                run_batched(
-                    f"4x3 NES batched x{args.batch}", config, imgs, args.steps,
-                    args.chunk,
-                )
-            ),
-            flush=True,
+        res = run_batched(
+            f"4x3 NES batched x{args.batch}", config, imgs, args.steps,
+            args.chunk,
         )
+        print(json.dumps({**res, "device": device}), flush=True)
 
 
 if __name__ == "__main__":

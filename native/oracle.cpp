@@ -1,13 +1,13 @@
-// Serial reference-semantics oracle for snesimage-tpu.
+// Serial reference-semantics oracle for snesimage.
 //
 // A from-spec C++ reimplementation of the reference pipeline's per-pixel
 // scan semantics (aexoden/snesimage src/lib.rs:425-501 `optimize`,
 // src/lib.rs:762-795 `get_closest_color_index`, src/lib.rs:1080-1100
 // distance functions), in f64 like the original. It exists so the batched
-// TPU kernels (parallel argmin remap, wavefront dither scan, vectorized
+// JAX ops (parallel argmin remap, wavefront dither scan, vectorized
 // CIEDE2000) can be validated against an independent scalar implementation
 // in tests. Built with g++ and loaded via ctypes (see
-// snesimage_tpu/native.py).
+// snesimage/native.py).
 //
 // This is NOT on the production compute path.
 

@@ -1,0 +1,706 @@
+"""Command-line interface.
+
+Flag-compatible with the reference CLI (src/config.rs:3-31, clap derive):
+two positional filenames, `-c/--subpalette-count`, `-s/--subpalette-size`,
+`-d/--dither`, `--perceptual-palettes`, `--nes` — plus framework
+extensions (steps, seed, convergence, checkpointing, preview) that replace
+the reference's interactive GUI controls (the green/blue buttons and the
+run-forever loop, src/lib.rs:888-1003).
+
+Logging mirrors the reference's fern format `[Y-m-d H:M:S][LEVEL][target]`
+(src/util.rs:3-25).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+
+class _ColorFormatter(logging.Formatter):
+    """Colored level names on TTYs (the reference colors its fern levels:
+    green INFO, bright-magenta DEBUG, src/util.rs:5-9)."""
+
+    _COLORS = {"INFO": "\x1b[32m", "DEBUG": "\x1b[95m", "WARNING": "\x1b[33m",
+               "ERROR": "\x1b[31m", "CRITICAL": "\x1b[31m"}
+
+    def format(self, record):
+        msg = super().format(record)
+        color = self._COLORS.get(record.levelname)
+        if color and sys.stdout.isatty():
+            return msg.replace(
+                record.levelname, f"{color}{record.levelname}\x1b[0m", 1
+            )
+        return msg
+
+
+def setup_logger(level: int = logging.INFO) -> None:
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(
+        _ColorFormatter(
+            "[%(asctime)s][%(levelname)-5s][%(name)s] %(message)s",
+            datefmt="%Y-%m-%d %H:%M:%S",
+        )
+    )
+    root = logging.getLogger()
+    root.handlers[:] = [handler]
+    root.setLevel(logging.WARNING)
+    logging.getLogger("snesimage").setLevel(level)
+
+
+# Optimizer profiles: the schedule/prescreen/stop recipes, name ->
+# (description, QuantConfig fields). 'reference' pins the
+# reference-parity defaults by name (empty: QuantConfig's defaults ARE
+# the reference semantics). Speed and quality of each are not measured on
+# the H100 yet; PERF.md keeps what has been.
+OPT_PROFILES: dict[str, tuple[str, dict]] = {
+    "reference": (
+        "reference 4-random/1-channel schedule, full scoring",
+        {},
+    ),
+    "fast": (
+        "channel descent + two-level prescreen + rank1 gate, tol 0.5 "
+        "(the fastest recipe; its final error is above the reference "
+        "schedule's band on the bench image)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            gate_margin=0.01, converge_tol=0.5, max_steps=10,
+        ),
+    ),
+    "quality": (
+        "channel descent + prescreen + 16 explore candidates + exact "
+        "accept threshold 0.005, tol 0.1 (targets the reference "
+        "schedule's plateau band)",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.1, max_steps=14,
+            accept_margin=0.005,
+        ),
+    ),
+    # The 'quality' recipe on a FIXED 8-step budget (tol 0 disables the
+    # plateau test: the budget IS the time contract). On the bench image
+    # it ended inside the reference schedule's seed band 113.4-115.8 for
+    # seed 0; like every explore schedule it is seed-sensitive.
+    "balanced": (
+        "the 'quality' recipe on a fixed 8-step budget — the headline "
+        "recipe, aiming at reference-band quality",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.0, max_steps=8,
+            accept_margin=0.005,
+        ),
+    ),
+    # Two-phase recipe (pipeline.run_fused_hybrid): the 'fast' profile to
+    # its plateau, then the 'quality' profile polishing that state. Its
+    # quality win was measured on the CPU backend only (final error
+    # 112.53 vs 115.04 for 'quality' alone on the bench image); f32
+    # trajectory divergence on an accelerator can land phase 1 in a worse
+    # basin. The field dict below is PHASE 2 (explicit optimizer flags
+    # override phase 2; phase 1 is always the 'fast' recipe, with
+    # --steps capping both phases).
+    "hybrid": (
+        "fast gated descent to plateau, then explore polish — best "
+        "CPU-backend quality; prefer 'balanced' on the GPU",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.1, max_steps=14,
+            accept_margin=0.005,
+        ),
+    ),
+    # 'balanced' + a K=2 seed portfolio: explore recipes are seed-
+    # sensitive and periodic tile reassignment measured as a non-fix, so
+    # best-of-2 trajectories is the supported robustness mechanism. The
+    # portfolio default (2) lives in main(), not here: K is a CLI
+    # dispatch concern, not a QuantConfig field.
+    "robust": (
+        "the 'balanced' recipe as a K=2 seed portfolio, keep the best "
+        "— quality robust to the seed lottery at ~2x the work",
+        dict(
+            schedule="channel", prescreen=8, prescreen_full=2,
+            channel_explore=16, converge_tol=0.0, max_steps=8,
+            accept_margin=0.005,
+        ),
+    ),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="snesimage",
+        description="SNES image quantizer (snesimage rebuilt on JAX/XLA).",
+    )
+    from snesimage import __version__
+
+    p.add_argument(
+        "--version", action="version", version=f"%(prog)s {__version__}"
+    )
+    # Reference-parity arguments (src/config.rs:3-31).
+    p.add_argument("source_filename", help="Image to optimize")
+    p.add_argument("target_filename", help="Output JSON filename")
+    # Geometry flags default to None sentinels so an explicitly passed
+    # value always overrides a preset, even when it equals the effective
+    # default (e.g. `--preset snes-mode1-bg12 -c 1`); absent flags fall to
+    # the preset's fields, then to QuantConfig's defaults (1, 7, off).
+    p.add_argument(
+        "-c", "--subpalette-count", type=int, default=None,
+        help="Number of separate subpalettes (default 1)",
+    )
+    p.add_argument(
+        "-s", "--subpalette-size", type=int, default=None,
+        help="Colors per subpalette, excluding transparent (default 7)",
+    )
+    p.add_argument(
+        "-d", "--dither", action="store_true", default=None,
+        help="Dither the output",
+    )
+    p.add_argument(
+        "--perceptual-palettes", action="store_true", default=None,
+        help="CIELAB/CIEDE2000 color comparisons",
+    )
+    p.add_argument(
+        "--nes", action="store_true", default=None,
+        help="Restrict to NES-like colors",
+    )
+    # Framework extensions.
+    from snesimage.models.presets import PRESETS
+
+    p.add_argument(
+        "--preset", choices=sorted(PRESETS),
+        help="Hardware-target preset for the palette geometry (e.g. "
+        "snes-mode1-bg12 = 8x15, nes-compat = 4x3 NES); explicit -c/-s/"
+        "--nes flags override preset fields",
+    )
+    p.add_argument(
+        "--opt-profile", choices=sorted(OPT_PROFILES),
+        # Built from the OPT_PROFILES descriptions so the help text can
+        # never drift from the selectable set.
+        help="Optimizer profile: the schedule/prescreen/stop recipes — "
+        + "; ".join(
+            f"'{name}': {desc}"
+            for name, (desc, _) in sorted(OPT_PROFILES.items())
+        )
+        + ". Explicit flags override profile fields",
+    )
+    p.add_argument(
+        "--steps", type=int, default=None,
+        help="Full optimization sweeps (the reference runs forever; "
+        "default 8)",
+    )
+    p.add_argument(
+        "--tol", type=float, default=None,
+        help="Stop when a full sweep improves error by less than this "
+        "(default 0 = fixed step budget)",
+    )
+    p.add_argument("--seed", type=int, default=0, help="Random-search seed")
+    p.add_argument(
+        "--prescreen", type=int, default=None, metavar="K",
+        help="Coarse-rank candidates and full-score only the top K "
+        "(0 = full scoring everywhere; measured to preserve selections "
+        "while skipping ~3/4 of the metric work on non-finalists)",
+    )
+    p.add_argument(
+        "--prescreen-full", type=int, default=None, metavar="M",
+        help="With --prescreen: rank finalists by their exact scale-1..5 "
+        "score and run the full metric's finest scale only on the top M "
+        "(0 = full-score every finalist; 2 is plateau-identical for "
+        "red-mean runs, use >= 4 with --perceptual-palettes)",
+    )
+    p.add_argument(
+        "--prescreen-pre", type=int, default=None, metavar="P",
+        help="With --prescreen (undithered): pre-rank ALL candidates by "
+        "their exact scale-3..5 score from 1/8-res frames and run the "
+        "quarter-res coarse stage only on the top P (must be > K; 0 = "
+        "every candidate runs the full coarse stage)",
+    )
+    p.add_argument(
+        "--schedule", choices=["reference", "channel"], default=None,
+        help="Step schedule: the reference's 4-random/1-channel cycle, or "
+        "pure channel sweeps (coordinate descent; converges several times "
+        "faster — pair with --channel-explore to escape its local minima)",
+    )
+    p.add_argument(
+        "--channel-explore", type=int, default=None, metavar="E",
+        help="Add E random full-RGB candidates to every channel visit's "
+        "32-value sweep (escapes coordinate-descent local minima at a "
+        "fraction of a random step's cost; 0 = deterministic sweeps)",
+    )
+    p.add_argument(
+        "--channel-window", type=int, default=0, metavar="W",
+        help="Windowed channel descent: after 2 exhaustive warm-up "
+        "sweeps, restrict most channel visits to the 2*W values nearest "
+        "the current one (fewer candidates per visit); every 3rd post-warmup "
+        "sweep stays exhaustive so large jumps are still found, and "
+        "convergence is only tested on exhaustive sweeps "
+        "(0 = all sweeps exhaustive)",
+    )
+    p.add_argument(
+        "--gate-margin", type=float, default=None, metavar="G",
+        help="With --prescreen-full (undithered): skip a visit's exact "
+        "scale-0 scoring unless its best finalist's predicted full "
+        "error (carried scale-0 term + exact scale-1..5 score) beats "
+        "the current error by more than G — late sweeps are almost "
+        "all-reject, so gating skips their finest-scale cost. "
+        "Acceptance stays exact; SMALLER G is safer, 0 = off",
+    )
+    p.add_argument(
+        "--dither-proxy", type=int, default=None, metavar="K",
+        help="Dithered runs: rank each visit's candidates by their exact "
+        "undithered coarse-scale score and wavefront-dither only the top "
+        "K (the wavefront is the dithered visit's dominant cost). 0 = "
+        "off. Same missed-improvement-only safety as --prescreen",
+    )
+    p.add_argument(
+        "--gate-coarse", action="store_true", default=None,
+        help="With --gate-margin: add a coarse-stage gate that skips a "
+        "visit's entire finalist pipeline (frame build + scale-1 rank + "
+        "finest scale) when even the best coarse candidate isn't "
+        "predicted to improve by more than the margin — bigger skips "
+        "than the rank1 gate on late, all-reject sweeps, at a larger "
+        "prediction blind spot",
+    )
+    p.add_argument(
+        "--accept-margin", type=float, default=None, metavar="T",
+        help="Accept a candidate only if it improves the exact error by "
+        "more than T (0 = reference strict-less-than rule). Filtering "
+        "weak accepts can steer the descent out of poor local optima; "
+        "applies to random/channel visits on any schedule, never to the "
+        "always-replace NES sweep",
+    )
+    p.add_argument(
+        "--trials", type=int, default=64,
+        help="Random candidates per slot visit (reference: 64)",
+    )
+    p.add_argument(
+        "--portfolio", type=int, default=None, metavar="K",
+        help="Optimize K independent random-seed trajectories as one "
+        "on-device batch and keep the best (extension; the reference runs "
+        "a single OS-seeded trajectory). Only meaningful with random "
+        "steps in the schedule; ignores -v/--profile-dir/--resume. "
+        "Default 1 (2 under --opt-profile robust)",
+    )
+    p.add_argument("--checkpoint", help="Write a resumable .npz checkpoint here")
+    p.add_argument("--resume", help="Resume from a .npz checkpoint")
+    p.add_argument("--preview", help="Write a [source|quantized|palette] PNG here")
+    p.add_argument(
+        "--skip-optimize", action="store_true",
+        help="Write output right after clustering (reference: blue button "
+        "pressed during the Clustering phase)",
+    )
+    p.add_argument(
+        "--reassign-every", type=int, default=0, metavar="N",
+        help="Re-fit tile->subpalette assignments every N optimization "
+        "steps (extension; the reference only supports manual reassignment)",
+    )
+    p.add_argument(
+        "--reassign-tiles", metavar="FILE",
+        help="Manual tile reassignment (the reference GUI's click "
+        "interaction): a text file with one tile per line — 'x y' cycles "
+        "that tile's subpalette once (one click), 'x y palette' sets it "
+        "directly; #-comments allowed. Applied after clustering (or after "
+        "--resume), then palettes are re-fit once, before optimization. "
+        "With --dump-every N the file is also RE-READ every N steps "
+        "during optimization and applied again whenever it changed on "
+        "disk (the reference GUI accepts tile clicks at any moment of "
+        "the optimization phase)",
+    )
+    p.add_argument(
+        "--dump-every", type=int, default=0, metavar="N",
+        help="Write the output JSON (and --preview/--checkpoint if given) "
+        "every N optimization steps, not just at the end — the reference "
+        "GUI writes output at any moment of its indefinite run (blue "
+        "button). Forces one host sync per step",
+    )
+    p.add_argument(
+        "--profile-dir",
+        help="Capture a jax.profiler trace of the optimization into this "
+        "directory (view with XProf/Perfetto)",
+    )
+    p.add_argument(
+        "-v", "--verbose", action="store_true",
+        help="Per-slot logging (reference granularity, src/lib.rs:906-915); "
+        "slower: forces one device round-trip per slot",
+    )
+    return p
+
+
+def merge_geometry(args) -> dict:
+    """Geometry fields for QuantConfig: explicitly passed flags (non-None)
+    override preset fields; anything else falls to QuantConfig defaults."""
+    explicit = {
+        k: v
+        for k, v in dict(
+            subpalette_count=args.subpalette_count,
+            subpalette_size=args.subpalette_size,
+            dither=args.dither,
+            perceptual_palettes=args.perceptual_palettes,
+            nes=args.nes,
+        ).items()
+        if v is not None
+    }
+    if args.preset:
+        from snesimage.models.presets import preset_fields
+
+        return {**preset_fields(args.preset), **explicit}
+    return explicit
+
+
+def merge_opt_fields(args) -> dict:
+    """Optimizer fields for QuantConfig: explicit flags (non-None
+    sentinels) override --opt-profile fields; anything else falls to
+    QuantConfig defaults (which equal the reference-parity 'reference'
+    profile). Shared by the single-image and batch CLIs so the override
+    set cannot drift between them — a knob accepted by a parser but
+    missing from this dict would be silently ignored (gate_coarse had
+    already drifted out of the batch CLI's copy)."""
+    opt = dict(OPT_PROFILES[args.opt_profile][1]) if args.opt_profile else {}
+    opt.update(
+        {
+            k: v
+            for k, v in dict(
+                max_steps=args.steps,
+                converge_tol=args.tol,
+                schedule=args.schedule,
+                channel_explore=args.channel_explore,
+                prescreen=args.prescreen,
+                prescreen_full=args.prescreen_full,
+                prescreen_pre=args.prescreen_pre,
+                dither_proxy=args.dither_proxy,
+                gate_margin=args.gate_margin,
+                gate_coarse=getattr(args, "gate_coarse", None),
+                accept_margin=args.accept_margin,
+            ).items()
+            if v is not None
+        }
+    )
+    return opt
+
+
+def resolve_portfolio_k(args) -> int:
+    """The 'robust' profile is 'balanced' + a K=2 seed portfolio; an
+    explicit --portfolio always wins (None = not passed). K is a CLI
+    dispatch concern, not a QuantConfig field, so it is resolved here
+    rather than through OPT_PROFILES."""
+    if args.portfolio is not None:
+        return args.portfolio
+    return 2 if args.opt_profile == "robust" else 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    setup_logger(logging.DEBUG if args.verbose else logging.INFO)
+    log = logging.getLogger("snesimage")
+    args.portfolio = resolve_portfolio_k(args)
+
+    # Imports deferred so `--help` stays fast (no JAX init).
+    from snesimage.config import QuantConfig
+    from snesimage.core import pipeline
+    from snesimage.core.refine import make_reference_pyramid
+    from snesimage.io.checkpoint import load_checkpoint, save_checkpoint
+    from snesimage.io.image import check_size, load_rgba
+    from snesimage.io.json_out import write_json
+
+    from snesimage.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    try:
+        optimized = False
+        config_fast = None  # phase-1 config when --opt-profile hybrid
+        if args.resume:
+            import dataclasses
+
+            state, config, meta = load_checkpoint(args.resume)
+            log.info("Resumed from %s at step %d", args.resume, meta["step"])
+            errors = list(meta["errors"])
+            # Stopping criteria are RNG-safe to override on resume (the
+            # stream is keyed by seed + start_step only); every OTHER
+            # optimizer/geometry flag is defined by the checkpointed
+            # config — warn instead of silently discarding them.
+            overrides = {}
+            if args.steps is not None:
+                overrides["max_steps"] = args.steps
+            if args.tol is not None:
+                overrides["converge_tol"] = args.tol
+            if overrides:
+                config = dataclasses.replace(config, **overrides)
+            discarded = [
+                flag
+                for flag, v in (
+                    ("--opt-profile", args.opt_profile),
+                    ("--schedule", args.schedule),
+                    ("--channel-explore", args.channel_explore),
+                    ("--prescreen", args.prescreen),
+                    ("--prescreen-full", args.prescreen_full),
+                    ("--prescreen-pre", args.prescreen_pre),
+                    ("--dither-proxy", args.dither_proxy),
+                    ("--gate-margin", args.gate_margin),
+                    ("--gate-coarse", args.gate_coarse),
+                    ("--accept-margin", args.accept_margin),
+                    ("-c", args.subpalette_count),
+                    ("-s", args.subpalette_size),
+                    ("-d", args.dither),
+                    ("--perceptual-palettes", args.perceptual_palettes),
+                    ("--nes", args.nes),
+                    ("--preset", args.preset),
+                )
+                if v not in (None, False)
+            ]
+            if discarded:
+                log.warning(
+                    "--resume continues the CHECKPOINTED config; "
+                    "ignoring %s (only --steps/--tol may override on "
+                    "resume — they are RNG-safe stopping criteria)",
+                    ", ".join(discarded),
+                )
+        else:
+            geometry = merge_geometry(args)
+            opt = merge_opt_fields(args)
+            config = QuantConfig(
+                **geometry,
+                **opt,
+                seed=args.seed,
+                random_trials=args.trials,
+                channel_window=args.channel_window,
+            )
+            if args.opt_profile == "hybrid":
+                # Phase 1 of the hybrid recipe: always the 'fast'
+                # profile (the generic override machinery above applies
+                # explicit flags to PHASE 2 = `config`); --steps caps
+                # both phases so bounded runs stay bounded.
+                opt1 = dict(OPT_PROFILES["fast"][1])
+                if args.steps is not None:
+                    opt1["max_steps"] = args.steps
+                config_fast = QuantConfig(
+                    **geometry,
+                    **opt1,
+                    seed=args.seed,
+                    random_trials=args.trials,
+                )
+                if args.portfolio > 1:
+                    raise ValueError(
+                        "--portfolio with --opt-profile hybrid is not "
+                        "supported (portfolio batches ONE config's RNG "
+                        "trajectories; run --opt-profile quality instead)"
+                    )
+            log.info("Using source image: %s", args.source_filename)
+            img = load_rgba(args.source_filename)
+            check_size(img, config.width, config.height)
+            if args.portfolio > 1 and not args.skip_optimize:
+                from snesimage.parallel.batch import portfolio_run
+
+                ignored = [
+                    flag
+                    for flag, v in (
+                        ("--dump-every", args.dump_every),
+                        ("--reassign-every", args.reassign_every),
+                        ("--reassign-tiles", args.reassign_tiles),
+                    )
+                    if v
+                ]
+                if ignored:
+                    log.warning(
+                        "%s ignored with --portfolio K>1 (the portfolio "
+                        "runs as fused on-device dispatches with no "
+                        "per-step host hook; use a single-trajectory "
+                        "run for interactive features)",
+                        ", ".join(ignored),
+                    )
+                state, seed_errs, errors = portfolio_run(
+                    img, config, args.portfolio
+                )
+                log.info(
+                    "portfolio: per-seed final errors %s -> kept %.4f",
+                    [round(float(e), 4) for e in seed_errs],
+                    float(seed_errs.min()),
+                )
+                log.info("Writing output to %s", args.target_filename)
+                write_json(args.target_filename, state, config)
+                if args.checkpoint:
+                    save_checkpoint(
+                        args.checkpoint, state, config,
+                        errors=errors, step=len(errors),
+                    )
+                    log.info("Checkpoint written to %s", args.checkpoint)
+                if args.preview:
+                    from snesimage.preview import save_preview
+
+                    save_preview(args.preview, state, config)
+                    log.info("Preview written to %s", args.preview)
+                return 0
+            if (
+                not args.skip_optimize
+                and not args.verbose
+                and args.reassign_every == 0
+                and args.dump_every == 0
+                and not args.reassign_tiles
+            ):
+                # Latency fast path: the whole pipeline as ONE dispatched
+                # XLA program with ONE host sync (pipeline.run_fused).
+                from snesimage.utils.profiling import trace
+
+                with trace(args.profile_dir):
+                    if config_fast is not None:
+                        state, errors, _ = pipeline.run_fused_hybrid(
+                            img, config_fast, config
+                        )
+                    else:
+                        state, errors, _ = pipeline.run_fused(img, config)
+                optimized = True
+            else:
+                state = pipeline.new_state(img, config)
+                state = pipeline.initialize(state, config)
+                state = pipeline.cluster(state, config)
+                errors = []
+
+        reassign_mtime = None
+        if args.reassign_tiles:
+            with open(args.reassign_tiles) as f:
+                assignments = pipeline.parse_reassignments(f.read())
+            state = pipeline.apply_tile_reassignments(
+                state, config, assignments
+            )
+            reassign_mtime = os.path.getmtime(args.reassign_tiles)
+            log.info(
+                "Applied %d tile reassignments from %s",
+                len(assignments), args.reassign_tiles,
+            )
+
+        if not args.skip_optimize and not optimized:
+            from snesimage.utils.profiling import trace
+
+            on_slot = None
+            if args.verbose:
+                def on_slot(visit, err):
+                    log.debug(
+                        "slot (%d, %d) %s error: %f",
+                        visit.palette, visit.index, visit.method, err,
+                    )
+
+            # Dump/reassign closures take the ACTIVE phase's config (the
+            # hybrid host path runs phase 1 under config_fast — a mid-
+            # phase-1 checkpoint must embed the config that produced the
+            # state, or resuming it would continue under the wrong
+            # recipe/RNG pairing) and account steps/errors GLOBALLY:
+            # `errors` holds all history before the running optimize
+            # call (pre-resume + earlier phases), so a mid-run
+            # checkpoint's step count keeps the resumed RNG stream
+            # advancing instead of replaying already-evaluated steps.
+            def make_on_step(cfg):
+                if args.dump_every <= 0:
+                    return None
+
+                def on_step(step, st, errs):
+                    if (step + 1) % args.dump_every:
+                        return
+                    write_json(args.target_filename, st, cfg)
+                    log.info(
+                        "Mid-run output written to %s at step %d",
+                        args.target_filename, step,
+                    )
+                    if args.checkpoint:
+                        save_checkpoint(
+                            args.checkpoint, st, cfg,
+                            errors=errors + errs,
+                            step=len(errors) + len(errs),
+                        )
+                    if args.preview:
+                        from snesimage.preview import save_preview
+
+                        save_preview(args.preview, st, cfg)
+
+                return on_step
+
+            # Live reassignment (reference GUI: a tile click works at
+            # any moment of the optimization phase, src/lib.rs:
+            # 1005-1024): re-read the file every --dump-every steps
+            # and apply it again whenever it changed on disk. A file
+            # edited mid-run must never crash a long run: parse
+            # errors are logged and skipped. The mtime cell is shared
+            # across hybrid phases (one file, one watcher).
+            mtime_cell = [reassign_mtime]
+
+            def make_on_step_state(cfg):
+                if not (args.reassign_tiles and args.dump_every > 0):
+                    return None
+
+                def on_step_state(step, st, errs):
+                    if (step + 1) % args.dump_every:
+                        return None
+                    try:
+                        m = os.path.getmtime(args.reassign_tiles)
+                    except OSError:
+                        return None
+                    if m == mtime_cell[0]:
+                        return None
+                    mtime_cell[0] = m
+                    try:
+                        with open(args.reassign_tiles) as f:
+                            assignments = pipeline.parse_reassignments(
+                                f.read()
+                            )
+                        st = pipeline.apply_tile_reassignments(
+                            st, cfg, assignments
+                        )
+                    except (OSError, ValueError) as err:
+                        log.error(
+                            "Ignoring mid-run reassignment file %s: %s",
+                            args.reassign_tiles, err,
+                        )
+                        return None
+                    log.info(
+                        "step %d: applied %d mid-run tile reassignments "
+                        "from %s",
+                        step, len(assignments), args.reassign_tiles,
+                    )
+                    return st
+
+                return on_step_state
+
+            refp = make_reference_pyramid(state)
+            with trace(args.profile_dir):
+                if config_fast is not None:
+                    # Hybrid on the host-stepped path (verbose /
+                    # --dump-every / --reassign-every): phase 1 fast,
+                    # then explore polish continuing the RNG stream.
+                    state, errs1 = pipeline.optimize(
+                        state, config_fast, refp=refp,
+                        start_step=len(errors),
+                        reassign_every=args.reassign_every,
+                        on_slot=on_slot,
+                        on_step=make_on_step(config_fast),
+                        on_step_state=make_on_step_state(config_fast),
+                    )
+                    errors.extend(errs1)
+                state, step_errors = pipeline.optimize(
+                    state, config, refp=refp, start_step=len(errors),
+                    reassign_every=args.reassign_every, on_slot=on_slot,
+                    on_step=make_on_step(config),
+                    on_step_state=make_on_step_state(config),
+                )
+            errors.extend(step_errors)
+
+        log.info("Writing output to %s", args.target_filename)
+        write_json(args.target_filename, state, config)
+
+        if args.checkpoint:
+            save_checkpoint(
+                args.checkpoint, state, config, errors=errors, step=len(errors)
+            )
+            log.info("Checkpoint written to %s", args.checkpoint)
+        if args.preview:
+            from snesimage.preview import save_preview
+
+            save_preview(args.preview, state, config)
+            log.info("Preview written to %s", args.preview)
+        return 0
+    except Exception as err:  # reference: log + exit(1) (src/main.rs:16-19)
+        log.error("Error running application: %s", err)
+        if args.verbose:
+            raise
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

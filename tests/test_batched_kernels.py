@@ -1,68 +1,77 @@
-"""Image-batched kernel entry points: custom_vmap rules (interpret mode).
+"""Image-batched prescreen and metric entry points under vmap.
 
-Round 2's trace-time BatchTracer sniffing was blind under vmap-of-jit (a
-pjit traces its body with unbatched tracers, then the OUTER vmap applies
-the default pallas_call batching rule — the exact vmap-of-pallas
-pathology that hangs Mosaic). Round 3 gives every kernel entry a real
-`jax.custom_vmap` rule that folds the image axis into a leading kernel
-grid dimension. These tests drive the kernels in Pallas interpret mode on
-the CPU backend, through BOTH plain vmap and vmap-of-jit, and pin them
-against the XLA fallback implementations.
+The batched paths (parallel/batch.py) vmap the slot-visit machinery over
+an image or seed axis, directly and through jit (vmap-of-jit). These tests
+drive the pooled win masks, the colour select and the channel-major
+feature block both ways and pin them against plain numpy loops (or the
+per-image feature path).
 """
 
-import pytest
-import numpy as np
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from snesimage_tpu.ops import pallas_prescreen as pp
-from snesimage_tpu.ops.pallas_dither import _ciede2000_planes
-
+from snesimage.ops import prescreen as ps
 
 N, B, H, W = 2, 3, 16, 16
 
 
+def _pool_np(m, ml):
+    """numpy loop reference: (B, H, W) masks -> (B, 4, H/4, W/4) sums of
+    [m, m*ml_r, m*ml_g, m*ml_b] over 4x4 blocks."""
+    b, h, w = m.shape
+    out = np.zeros((b, 4, h // 4, w // 4), np.float64)
+    for k in range(b):
+        maps = [m[k]] + [m[k] * ml[c] for c in range(3)]
+        for c, mp in enumerate(maps):
+            for y in range(h // 4):
+                for x in range(w // 4):
+                    out[k, c, y, x] = mp[4 * y : 4 * y + 4, 4 * x : 4 * x + 4].sum()
+    return out
+
+
+def _redmean_wins(tg, cand, bva):
+    """numpy reference win masks (B, H, W) for one image: 512 * red-mean^2
+    distance of each candidate below the threshold."""
+    t = tg.astype(np.int64)
+    m = np.zeros((len(cand),) + bva.shape, bool)
+    for b, (r, g, bl) in enumerate(cand.astype(np.int64)):
+        rsum = t[0] + r
+        d = ((1024 + rsum) * (r - t[0]) ** 2 + 2048 * (g - t[1]) ** 2
+             + (1534 - rsum) * (bl - t[2]) ** 2)
+        m[b] = d < bva
+    return m
+
+
 def _redmean_args(rng):
-    tg = jnp.asarray(rng.integers(0, 256, (N, 3, H, W)).astype(np.int32))
-    cand = jnp.asarray(rng.integers(0, 256, (N, B, 3)).astype(np.int32))
-    bva = jnp.asarray(
-        rng.integers(0, 150_000_000, (N, H, W)).astype(np.int32)
-    )
-    ml = jnp.asarray(rng.random((N, 3, H, W)).astype(np.float32))
+    tg = rng.integers(0, 256, (N, 3, H, W)).astype(np.int32)
+    cand = rng.integers(0, 256, (N, B, 3)).astype(np.int32)
+    bva = rng.integers(0, 150_000_000, (N, H, W)).astype(np.int32)
+    ml = rng.random((N, 3, H, W)).astype(np.float32)
     return tg, cand, bva, ml
 
 
 def _redmean_want(tg, cand, bva, ml):
-    return np.stack(
-        [
-            np.asarray(
-                pp._pooled_wins_redmean_xla(tg[i], cand[i], bva[i], ml[i])
-            )
-            for i in range(N)
-        ]
-    )
+    return np.stack([
+        _pool_np(_redmean_wins(tg[n], cand[n], bva[n]).astype(np.float64),
+                 ml[n])
+        for n in range(N)
+    ])
 
 
 def test_pooled_wins_redmean_vmap(rng):
     args = _redmean_args(rng)
-    got = jax.vmap(
-        lambda a, b, c, d: pp.pooled_wins_redmean(a, b, c, d, interpret=True)
-    )(*args)
+    got = jax.vmap(ps.pooled_wins_redmean)(*map(jnp.asarray, args))
     np.testing.assert_allclose(
         np.asarray(got), _redmean_want(*args), rtol=1e-5, atol=1e-5
     )
 
 
 def test_pooled_wins_redmean_vmap_of_jit(rng):
-    """The round-2 failure mode: the kernel call staged inside jit, then
-    vmapped from outside. The custom_vmap rule must still fold the image
-    axis into the kernel grid (the default pallas batching rule would
-    hang Mosaic on TPU)."""
+    """The batched paths' pattern: the call staged inside jit, then
+    vmapped from outside."""
     args = _redmean_args(rng)
-    f = jax.jit(
-        lambda a, b, c, d: pp.pooled_wins_redmean(a, b, c, d, interpret=True)
-    )
-    got = jax.vmap(f)(*args)
+    got = jax.vmap(jax.jit(ps.pooled_wins_redmean))(*map(jnp.asarray, args))
     np.testing.assert_allclose(
         np.asarray(got), _redmean_want(*args), rtol=1e-5, atol=1e-5
     )
@@ -70,87 +79,56 @@ def test_pooled_wins_redmean_vmap_of_jit(rng):
 
 def test_pooled_wins_redmean_unbatched_matches_xla(rng):
     tg, cand, bva, ml = _redmean_args(rng)
-    got = pp.pooled_wins_redmean(tg[0], cand[0], bva[0], ml[0], interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got),
-        np.asarray(pp._pooled_wins_redmean_xla(tg[0], cand[0], bva[0], ml[0])),
-        rtol=1e-5, atol=1e-5,
+    got = ps.pooled_wins_redmean(
+        jnp.asarray(tg[0]), jnp.asarray(cand[0]), jnp.asarray(bva[0]),
+        jnp.asarray(ml[0]),
     )
-
-
-def _ciede_args(rng):
-    tlab = np.stack(
-        [
-            rng.random((N, H, W)).astype(np.float32) * 100.0,
-            rng.random((N, H, W)).astype(np.float32) * 160.0 - 80.0,
-            rng.random((N, H, W)).astype(np.float32) * 160.0 - 80.0,
-        ],
-        axis=1,
-    )
-    clab = np.stack(
-        [
-            rng.random((N, B)).astype(np.float32) * 100.0,
-            rng.random((N, B)).astype(np.float32) * 160.0 - 80.0,
-            rng.random((N, B)).astype(np.float32) * 160.0 - 80.0,
-        ],
-        axis=-1,
-    )
-    bvalm = (rng.random((N, H, W)).astype(np.float32) * 40.0).astype(
-        np.float32
-    )
-    adj = rng.integers(0, 2, (N, H, W)).astype(np.int32)
-    ml = rng.random((N, 3, H, W)).astype(np.float32)
-    return tuple(map(jnp.asarray, (tlab, clab, bvalm, adj, ml)))
-
-
-def _ciede_want(tlab, clab, bvalm, adj, ml):
-    pooled, dc = [], []
-    for i in range(N):
-        d = jnp.stack(
-            [
-                _ciede2000_planes(
-                    tlab[i, 0], tlab[i, 1], tlab[i, 2],
-                    clab[i, b, 0], clab[i, b, 1], clab[i, b, 2],
-                )
-                for b in range(B)
-            ]
-        )
-        pooled.append(np.asarray(pp._pooled_wins_xla(d, bvalm[i], adj[i], ml[i])))
-        dc.append(np.asarray(d))
-    return np.stack(pooled), np.stack(dc)
+    want = _redmean_want(tg, cand, bva, ml)[0]
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
 
 
 def test_pooled_wins_ciede_vmap_of_jit(rng):
-    args = _ciede_args(rng)
-    f = jax.jit(
-        lambda t, c, bv, a, m: pp.pooled_wins_ciede(
-            t, c, bv, a, m, None, interpret=True
+    """Distance-plane mode (the perceptual path): strict wins, or ties
+    where `adj` gives them to the candidate."""
+    d = (rng.integers(0, 8, (N, B, H, W)) * 0.5).astype(np.float32)
+    bvalm = (rng.integers(0, 8, (N, H, W)) * 0.5).astype(np.float32)
+    adj = rng.integers(0, 2, (N, H, W)).astype(np.int32)
+    ml = rng.random((N, 3, H, W)).astype(np.float32)
+    got = jax.vmap(jax.jit(ps.pooled_wins))(
+        *map(jnp.asarray, (d, bvalm, adj, ml))
+    )
+    want = np.stack([
+        _pool_np(
+            ((d[n] < bvalm[n]) | ((d[n] == bvalm[n]) & (adj[n] != 0)))
+            .astype(np.float64),
+            ml[n],
         )
-    )
-    pooled, dcand = jax.vmap(f)(*args)
-    want_pooled, want_d = _ciede_want(*args)
-    np.testing.assert_allclose(np.asarray(dcand), want_d, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(pooled), want_pooled, rtol=1e-4, atol=1e-4
-    )
+        for n in range(N)
+    ])
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
 
 
 def test_select_colors_vmap_of_jit(rng):
     nk = 7
-    key = jnp.asarray(rng.integers(0, nk + 1, (N, H, W)).astype(np.int32))
-    tbl = jnp.asarray(rng.random((N, 3, nk)).astype(np.float32))
-    f = jax.jit(lambda k, t: pp.select_colors(k, t, interpret=True))
-    got = jax.vmap(f)(key, tbl)
-    want = np.stack(
-        [np.asarray(pp._select_colors_xla(key[i], tbl[i])) for i in range(N)]
+    key = rng.integers(0, nk + 1, (N, H, W)).astype(np.int32)
+    tbl = rng.random((N, 3, nk)).astype(np.float32)
+    got = np.asarray(
+        jax.vmap(jax.jit(ps.select_colors))(jnp.asarray(key), jnp.asarray(tbl))
     )
-    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-6, atol=1e-6)
+    want = np.zeros((N, 3, H, W), np.float32)
+    for n in range(N):
+        for y in range(H):
+            for x in range(W):
+                k = key[n, y, x]
+                if k < nk:  # the sentinel key nk selects 0
+                    want[n, :, y, x] = tbl[n, :, k]
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fused_metric_block_vmap_of_jit(rng):
-    """The fused multi-scale metric under an image batch must match the
-    per-image XLA feature path (scores via identical features)."""
-    from snesimage_tpu.ops.ssimulacra2 import (
+    """The channel-major feature block under an image batch must match
+    the per-image feature path."""
+    from snesimage.ops.ssimulacra2 import (
         fused_scale_feature_block,
         reference_pyramid,
         scale_features,
@@ -162,9 +140,7 @@ def test_fused_metric_block_vmap_of_jit(rng):
     refp = jax.vmap(reference_pyramid)(refs)
     frames_cmaj = jnp.moveaxis(frames, -1, 2)
 
-    f = jax.jit(
-        lambda rp, fc: fused_scale_feature_block(rp, fc, 0, 3, interpret=True)
-    )
+    f = jax.jit(lambda rp, fc: fused_scale_feature_block(rp, fc, 0, 3))
     got = np.asarray(jax.vmap(f)(refp, frames_cmaj))
 
     for i in range(N):
@@ -175,202 +151,47 @@ def test_fused_metric_block_vmap_of_jit(rng):
         np.testing.assert_allclose(got[i], want, rtol=2e-4, atol=2e-4)
 
 
-def _coarse_scenario(rng, h=128, w=128, b=5):
-    """Random but structurally valid inputs for the fused coarse kernels."""
-    from snesimage_tpu.ops.ssimulacra2 import reference_pyramid
-
-    ref = jnp.asarray(rng.random((h, w, 3)).astype(np.float32))
-    refp = reference_pyramid(ref)
-    flat_refs = tuple(
-        jnp.moveaxis(a, -1, -3) for s in range(2, 6) for a in refp[s]
-    )
-    sizes = [(h >> s) * (w >> s) for s in range(2, 6)]
-    lnc = jnp.asarray(rng.random((3, h, w)).astype(np.float32))
-    ml = jnp.asarray(rng.random((3, h, w)).astype(np.float32))
-    ds4_l = lnc.reshape(3, h // 4, 4, w // 4, 4).mean(axis=(2, 4))
-    cand_lin = jnp.asarray(rng.random((b, 3)).astype(np.float32))
-    return refp, flat_refs, sizes, ml, ds4_l, cand_lin, h, w, b
-
-
-@pytest.mark.slow
-def test_fused_coarse_redmean_matches_composition(rng):
-    """The one-kernel coarse stage (wins + pooled sums + coarse frame +
-    scale-2..5 features) must match the three-stage XLA composition."""
-    from snesimage_tpu.ops.pallas_metric import coarse_feature_sums_redmean
-    from snesimage_tpu.ops.ssimulacra2 import (
-        finalize_feature_sums,
-        fused_scale_feature_block,
-    )
-
-    refp, flat_refs, sizes, ml, ds4_l, cand_lin, h, w, b = _coarse_scenario(rng)
-    tg = jnp.asarray(rng.integers(0, 256, (3, h, w)).astype(np.int32))
-    cand8 = jnp.asarray(rng.integers(0, 256, (b, 3)).astype(np.int32))
-    bva = jnp.asarray(rng.integers(0, 150_000_000, (h, w)).astype(np.int32))
-
-    sums = coarse_feature_sums_redmean(
-        tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs, interpret=True
-    )
-    got = np.asarray(finalize_feature_sums(sums, sizes, 2))
-
-    pooled = pp._pooled_wins_redmean_xla(tg, cand8, bva, ml)
-    frames = (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
-    want = np.asarray(fused_scale_feature_block(refp, frames, 2, 4))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.slow
-def test_fused_coarse_ciede_matches_composition(rng):
-    from snesimage_tpu.ops.pallas_metric import coarse_feature_sums_ciede
-    from snesimage_tpu.ops.ssimulacra2 import (
-        finalize_feature_sums,
-        fused_scale_feature_block,
-    )
-
-    refp, flat_refs, sizes, ml, ds4_l, cand_lin, h, w, b = _coarse_scenario(rng)
-    tlab = jnp.asarray(
-        np.stack(
-            [
-                rng.random((h, w)).astype(np.float32) * 100.0,
-                rng.random((h, w)).astype(np.float32) * 160.0 - 80.0,
-                rng.random((h, w)).astype(np.float32) * 160.0 - 80.0,
-            ]
-        )
-    )
-    clab = jnp.asarray(
-        np.stack(
-            [
-                rng.random((b,)).astype(np.float32) * 100.0,
-                rng.random((b,)).astype(np.float32) * 160.0 - 80.0,
-                rng.random((b,)).astype(np.float32) * 160.0 - 80.0,
-            ],
-            axis=-1,
-        )
-    )
-    bvalm = jnp.asarray(rng.random((h, w)).astype(np.float32) * 40.0)
-    adj = jnp.asarray(rng.integers(0, 2, (h, w)).astype(np.int32))
-
-    sums, dcand = coarse_feature_sums_ciede(
-        tlab, clab, cand_lin, bvalm, adj, ml, ds4_l, flat_refs,
-        interpret=True,
-    )
-    got = np.asarray(finalize_feature_sums(sums, sizes, 2))
-
-    d = jnp.stack(
-        [
-            _ciede2000_planes(
-                tlab[0], tlab[1], tlab[2], clab[i, 0], clab[i, 1], clab[i, 2]
-            )
-            for i in range(b)
-        ]
-    )
-    np.testing.assert_allclose(np.asarray(dcand), np.asarray(d), rtol=1e-4,
-                               atol=1e-4)
-    pooled = pp._pooled_wins_xla(d, bvalm, adj, ml)
-    frames = (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
-    want = np.asarray(fused_scale_feature_block(refp, frames, 2, 4))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-
-
 def test_fused_coarse_three_level_redmean(rng):
-    """pre_ds=1 + emit_frames (the three-level prescreen's kernel mode):
-    the 1/8-res scale-3..5 sums must match the XLA composition on the
-    2x2-pooled coarse frames, and the emitted quarter-res frames must
-    equal the XLA-assembled coarse frames (the scale-2 stage re-scores
-    the pre-ranked top candidates from them; core/refine.py)."""
-    from snesimage_tpu.ops.pallas_metric import coarse_feature_sums_redmean
-    from snesimage_tpu.ops.ssimulacra2 import (
-        finalize_feature_sums,
+    """The prescreen's decomposition: the quarter-res frame assembled from
+    pooled win sums, ds4(L) + (c * pool4(m) - pool4(m * ML)) / 16, must
+    equal the 4x4 box mean of the materialized candidate frame
+    where(m, c, L) — and its scale-3..5 features (the three-level
+    pre-rank, pre_ds=1) must match those of that downsampled frame."""
+    from snesimage.ops.ssimulacra2 import (
+        downsample2,
         fused_scale_feature_block,
+        reference_pyramid,
+        scale_features,
     )
 
-    refp, _, _, ml, ds4_l, cand_lin, h, w, b = _coarse_scenario(rng)
-    flat_refs = tuple(
-        jnp.moveaxis(a, -1, -3) for s in range(3, 6) for a in refp[s]
+    h = w = 64
+    refp = reference_pyramid(
+        jnp.asarray(rng.random((h, w, 3)).astype(np.float32))
     )
-    sizes = [(h >> s) * (w >> s) for s in range(3, 6)]
-    tg = jnp.asarray(rng.integers(0, 256, (3, h, w)).astype(np.int32))
-    cand8 = jnp.asarray(rng.integers(0, 256, (b, 3)).astype(np.int32))
-    bva = jnp.asarray(rng.integers(0, 150_000_000, (h, w)).astype(np.int32))
+    tg = rng.integers(0, 256, (3, h, w)).astype(np.int32)
+    cand8 = rng.integers(0, 256, (B, 3)).astype(np.int32)
+    mask = rng.random((h, w)) < 0.7
+    bva = np.where(
+        mask, rng.integers(0, 150_000_000, (h, w)), np.iinfo(np.int32).min
+    ).astype(np.int32)
+    lnc = rng.random((3, h, w)).astype(np.float32)
+    ml = np.where(mask[None], lnc, 0.0).astype(np.float32)
+    cand_lin = rng.random((B, 3)).astype(np.float32)
 
-    sums, frames_q = coarse_feature_sums_redmean(
-        tg, cand8, cand_lin, bva, ml, ds4_l, flat_refs,
-        pre_ds=1, emit_frames=True, interpret=True,
-    )
-    got = np.asarray(finalize_feature_sums(sums, sizes, 3))
-
-    pooled = pp._pooled_wins_redmean_xla(tg, cand8, bva, ml)
-    frames = (
+    pooled = ps.pooled_wins_redmean(*map(jnp.asarray, (tg, cand8, bva, ml)))
+    ds4_l = lnc.reshape(3, h // 4, 4, w // 4, 4).mean(axis=(2, 4))
+    coarse = (
         cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
     ) / 16.0 + ds4_l[None]
-    np.testing.assert_allclose(
-        np.asarray(frames_q), np.asarray(frames), rtol=2e-4, atol=2e-4
-    )
-    want = np.asarray(fused_scale_feature_block(refp, frames, 3, 3, pre_ds=1))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
+    wins = _redmean_wins(tg, cand8, bva)
+    frames = np.where(wins[:, None], cand_lin[:, :, None, None], lnc[None])
+    ds4 = frames.reshape(B, 3, h // 4, 4, w // 4, 4).mean(axis=(3, 5))
+    np.testing.assert_allclose(np.asarray(coarse), ds4, rtol=1e-5, atol=1e-5)
 
-@pytest.mark.slow
-def test_fused_coarse_three_level_ciede(rng):
-    from snesimage_tpu.ops.pallas_metric import coarse_feature_sums_ciede
-    from snesimage_tpu.ops.ssimulacra2 import (
-        finalize_feature_sums,
-        fused_scale_feature_block,
+    got = np.asarray(fused_scale_feature_block(refp, coarse, 3, 3, pre_ds=1))
+    lin = jnp.moveaxis(jnp.asarray(ds4, jnp.float32), 1, -1)
+    want = np.asarray(
+        scale_features(refp, downsample2(lin), skip_scales=3, input_scale=3)
     )
-
-    refp, _, _, ml, ds4_l, cand_lin, h, w, b = _coarse_scenario(rng)
-    flat_refs = tuple(
-        jnp.moveaxis(a, -1, -3) for s in range(3, 6) for a in refp[s]
-    )
-    sizes = [(h >> s) * (w >> s) for s in range(3, 6)]
-    tlab = jnp.asarray(
-        np.stack(
-            [
-                rng.random((h, w)).astype(np.float32) * 100.0,
-                rng.random((h, w)).astype(np.float32) * 160.0 - 80.0,
-                rng.random((h, w)).astype(np.float32) * 160.0 - 80.0,
-            ]
-        )
-    )
-    clab = jnp.asarray(
-        np.stack(
-            [
-                rng.random((b,)).astype(np.float32) * 100.0,
-                rng.random((b,)).astype(np.float32) * 160.0 - 80.0,
-                rng.random((b,)).astype(np.float32) * 160.0 - 80.0,
-            ],
-            axis=-1,
-        )
-    )
-    bvalm = jnp.asarray(rng.random((h, w)).astype(np.float32) * 40.0)
-    adj = jnp.asarray(rng.integers(0, 2, (h, w)).astype(np.int32))
-
-    sums, dcand, frames_q = coarse_feature_sums_ciede(
-        tlab, clab, cand_lin, bvalm, adj, ml, ds4_l, flat_refs,
-        pre_ds=1, emit_frames=True, interpret=True,
-    )
-    got = np.asarray(finalize_feature_sums(sums, sizes, 3))
-
-    d = jnp.stack(
-        [
-            _ciede2000_planes(
-                tlab[0], tlab[1], tlab[2], clab[i, 0], clab[i, 1], clab[i, 2]
-            )
-            for i in range(b)
-        ]
-    )
-    np.testing.assert_allclose(
-        np.asarray(dcand), np.asarray(d), rtol=1e-4, atol=1e-4
-    )
-    pooled = pp._pooled_wins_xla(d, bvalm, adj, ml)
-    frames = (
-        cand_lin[:, :, None, None] * pooled[:, :1] - pooled[:, 1:4]
-    ) / 16.0 + ds4_l[None]
-    np.testing.assert_allclose(
-        np.asarray(frames_q), np.asarray(frames), rtol=2e-4, atol=2e-4
-    )
-    want = np.asarray(fused_scale_feature_block(refp, frames, 3, 3, pre_ds=1))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

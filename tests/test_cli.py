@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from snesimage_tpu.cli import build_parser, main
+from snesimage.cli import build_parser, main
 
 
 def test_parser_reference_flags():
@@ -24,8 +24,8 @@ def test_parser_reference_flags():
 def test_parser_defaults():
     """Effective defaults match src/config.rs:14-18 (the parser itself uses
     None sentinels so explicit flags can override presets)."""
-    from snesimage_tpu.cli import merge_geometry
-    from snesimage_tpu.config import QuantConfig
+    from snesimage.cli import merge_geometry
+    from snesimage.config import QuantConfig
 
     a = build_parser().parse_args(["a", "b"])
     cfg = QuantConfig(**merge_geometry(a))
@@ -38,7 +38,7 @@ def test_explicit_flag_overrides_preset_even_at_default_value():
     """`--preset snes-mode1-bg12 -c 1` must honor the explicit -c 1 even
     though 1 equals the effective default (regression: default-comparison
     merging silently kept the preset's 8)."""
-    from snesimage_tpu.cli import merge_geometry
+    from snesimage.cli import merge_geometry
 
     a = build_parser().parse_args(
         ["a", "b", "--preset", "snes-mode1-bg12", "-c", "1"]
@@ -49,7 +49,7 @@ def test_explicit_flag_overrides_preset_even_at_default_value():
 
 
 def test_preset_fields_apply_when_flags_absent():
-    from snesimage_tpu.cli import merge_geometry
+    from snesimage.cli import merge_geometry
 
     a = build_parser().parse_args(["a", "b", "--preset", "nes-compat"])
     g = merge_geometry(a)
@@ -91,7 +91,7 @@ def test_resume_stop_flags_override_and_warn(tmp_path, rng, capsys):
     resumed), so resuming it again keeps advancing the RNG stream."""
     from PIL import Image
 
-    from snesimage_tpu.io.checkpoint import load_checkpoint
+    from snesimage.io.checkpoint import load_checkpoint
 
     img = rng.integers(0, 256, (256, 256, 4)).astype(np.uint8)
     img[..., 3] = 255
@@ -133,7 +133,7 @@ def test_midrun_checkpoint_counts_resumed_history(tmp_path, rng):
 
     from PIL import Image
 
-    from snesimage_tpu.io.checkpoint import load_checkpoint
+    from snesimage.io.checkpoint import load_checkpoint
 
     img = rng.integers(0, 256, (256, 256, 4)).astype(np.uint8)
     img[..., 3] = 255
@@ -226,9 +226,9 @@ def test_checkpoint_exact_path_and_atomic(tmp_path, rng):
     at run.ckpt.npz and `--resume run.ckpt` failed) and atomically (no
     .tmp remnant; a kill mid-write can't destroy the previous good
     file)."""
-    from snesimage_tpu.config import QuantConfig
-    from snesimage_tpu.core.state import new_state
-    from snesimage_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from snesimage.config import QuantConfig
+    from snesimage.core.state import new_state
+    from snesimage.io.checkpoint import load_checkpoint, save_checkpoint
 
     img = rng.integers(0, 256, (64, 64, 4)).astype(np.uint8)
     img[..., 3] = 255
@@ -250,7 +250,7 @@ def test_batch_cli_input_validation(tmp_path, rng):
     message; an empty multi-host shard is a clean exit 0, not an error."""
     from PIL import Image
 
-    from snesimage_tpu.batch_cli import main as batch_main
+    from snesimage.batch_cli import main as batch_main
 
     indir = tmp_path / "in"
     outdir = tmp_path / "out"
@@ -283,7 +283,7 @@ def test_batch_cli_input_validation(tmp_path, rng):
 def test_batch_cli_end_to_end(tmp_path, rng):
     from PIL import Image
 
-    from snesimage_tpu.batch_cli import main as batch_main
+    from snesimage.batch_cli import main as batch_main
 
     indir = tmp_path / "in"
     outdir = tmp_path / "out"
@@ -302,7 +302,7 @@ def test_batch_cli_end_to_end(tmp_path, rng):
 
 
 def test_batch_cli_empty_dir(tmp_path):
-    from snesimage_tpu.batch_cli import main as batch_main
+    from snesimage.batch_cli import main as batch_main
 
     (tmp_path / "empty").mkdir()
     rc = batch_main([str(tmp_path / "empty"), str(tmp_path / "out")])
@@ -310,7 +310,7 @@ def test_batch_cli_empty_dir(tmp_path):
 
 
 def test_presets():
-    from snesimage_tpu.models import PRESETS, get_preset
+    from snesimage.models import PRESETS, get_preset
 
     cfg = get_preset("snes-mode1-bg12")
     assert (cfg.subpalette_count, cfg.subpalette_size) == (8, 15)
@@ -333,7 +333,7 @@ def test_parser_preset_flag():
 def test_shard_paths_round_robin():
     """Multi-host file sharding (docs/adr/0001-multihost.md): round-robin,
     disjoint, complete, sizes within one of each other."""
-    from snesimage_tpu.batch_cli import shard_paths
+    from snesimage.batch_cli import shard_paths
 
     paths = [f"img{i:03}.png" for i in range(10)]
     shards = [shard_paths(paths, 3, k) for k in range(3)]
@@ -349,7 +349,7 @@ def test_batch_cli_tuned_knobs_parse():
     """batch_cli accepts the tuned recipe knobs (--tol/--channel-explore/
     --gate-margin/--accept-margin/--opt-profile) with the same None-sentinel
     override layering as the single-image CLI."""
-    from snesimage_tpu.batch_cli import build_parser as batch_parser
+    from snesimage.batch_cli import build_parser as batch_parser
 
     a = batch_parser().parse_args(
         ["in", "out", "--opt-profile", "quality", "--tol", "0.2",
@@ -421,8 +421,8 @@ def test_cli_midrun_reassign(tmp_path, rng):
 def test_opt_profile_resolution():
     """--opt-profile applies the measured recipe; explicit flags override
     individual profile fields; no profile keeps reference defaults."""
-    from snesimage_tpu.cli import OPT_PROFILES, build_parser
-    from snesimage_tpu.config import QuantConfig
+    from snesimage.cli import OPT_PROFILES, build_parser
+    from snesimage.config import QuantConfig
 
     def resolve(argv):
         a = build_parser().parse_args(argv)
@@ -460,7 +460,7 @@ def test_opt_profile_resolution():
     assert cfg.converge_tol == 0.3 and cfg.prescreen == 12
     assert cfg.schedule == "channel"  # untouched profile field survives
 
-    # balanced = the chip-validated both-criteria recipe: the quality
+    # balanced = the headline recipe: the quality
     # fields on a FIXED 8-step budget (tol 0 = no plateau test).
     cfg = resolve(["a", "b", "--opt-profile", "balanced"])
     assert cfg.channel_explore == 16 and cfg.accept_margin == 0.005
@@ -478,7 +478,7 @@ def test_robust_profile_portfolio_default(tmp_path):
     """--opt-profile robust defaults --portfolio to 2; an explicit
     --portfolio always wins; other profiles keep the default of 1; the
     batch CLI rejects the profile (portfolio is a single-image shape)."""
-    from snesimage_tpu import cli
+    from snesimage import cli
 
     def resolved_k(argv):
         return cli.resolve_portfolio_k(cli.build_parser().parse_args(argv))
@@ -491,7 +491,7 @@ def test_robust_profile_portfolio_default(tmp_path):
     assert resolved_k(["a", "b", "--opt-profile", "robust",
                        "--portfolio", "1"]) == 1
 
-    from snesimage_tpu.batch_cli import main as batch_main
+    from snesimage.batch_cli import main as batch_main
 
     indir = tmp_path / "in"
     indir.mkdir()
@@ -504,7 +504,7 @@ def test_hybrid_profile_cli(tmp_path):
     """--opt-profile hybrid: phase 2 fields come from the profile dict
     (same as 'quality'); --portfolio is rejected (exit-1 contract); the
     batch CLI rejects the profile outright (one fused config per batch)."""
-    from snesimage_tpu.cli import OPT_PROFILES
+    from snesimage.cli import OPT_PROFILES
 
     assert OPT_PROFILES["hybrid"][1] == OPT_PROFILES["quality"][1]
 
@@ -515,7 +515,7 @@ def test_hybrid_profile_cli(tmp_path):
     )
     assert rc == 1
 
-    from snesimage_tpu.batch_cli import main as batch_main
+    from snesimage.batch_cli import main as batch_main
 
     indir = tmp_path / "in"
     outdir = tmp_path / "out"

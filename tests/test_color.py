@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from snesimage_tpu.constants import NES_PALETTE_5BIT
-from snesimage_tpu.native import oracle_ciede2000, oracle_red_mean, oracle_srgb_to_lab
-from snesimage_tpu.ops import color
+from snesimage.constants import NES_PALETTE_5BIT
+from snesimage.native import oracle_ciede2000, oracle_red_mean, oracle_srgb_to_lab
+from snesimage.ops import color
 
 
 def test_expand_5bit_to_8bit_endpoints():
@@ -121,65 +121,3 @@ def test_nes_quantize_matches_oracle_bruteforce(rng):
             if err < best_err:
                 best_err, best = err, idx
         np.testing.assert_array_equal(g, NES_PALETTE_5BIT[best])
-
-
-def test_ciede2000_planes_matches_xla(rng):
-    """The kernels' algebraic-hue CIEDE2000 (pallas_dither._ciede2000_planes:
-    dot/cross hue difference, stable sum-vs-rotated-difference mean-hue
-    selection, Chebyshev T-term) must track the golden angle-based XLA
-    form closely — including forced near-opposition hues, where a naive
-    bisector catastrophically cancels. Exact opposition (within ~1e-5 rad)
-    is excluded: CIEDE2000 is genuinely discontinuous there and f32
-    rounding picks the side arbitrarily in BOTH forms."""
-    from snesimage_tpu.ops.pallas_dither import _ciede2000_planes
-
-    c1 = rng.integers(0, 256, (20000, 3)).astype(np.uint8)
-    c2 = rng.integers(0, 256, (20000, 3)).astype(np.uint8)
-    l1 = color.srgb_u8_to_lab(jnp.asarray(c1))
-    l2 = color.srgb_u8_to_lab(jnp.asarray(c2))
-    want = np.asarray(color.ciede2000(l1, l2))
-    got = np.asarray(
-        _ciede2000_planes(
-            l1[:, 0], l1[:, 1], l1[:, 2], l2[:, 0], l2[:, 1], l2[:, 2]
-        )
-    )
-    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
-
-    # near-opposition stress: hue2 = hue1 + 180deg +- up to 1.1deg
-    n = 20000
-    h1 = rng.uniform(0, 2 * np.pi, n)
-    eps = rng.uniform(1e-4, 2e-2, n) * rng.choice([-1.0, 1.0], n)
-    h2 = h1 + np.pi + eps
-    r1 = rng.uniform(5, 80, n)
-    r2 = rng.uniform(5, 80, n)
-    lab1 = np.stack(
-        [rng.uniform(0, 100, n), r1 * np.cos(h1), r1 * np.sin(h1)], -1
-    ).astype(np.float32)
-    lab2 = np.stack(
-        [rng.uniform(0, 100, n), r2 * np.cos(h2), r2 * np.sin(h2)], -1
-    ).astype(np.float32)
-    want = np.asarray(color.ciede2000(jnp.asarray(lab1), jnp.asarray(lab2)))
-    got = np.asarray(
-        _ciede2000_planes(
-            lab1[:, 0], lab1[:, 1], lab1[:, 2],
-            lab2[:, 0], lab2[:, 1], lab2[:, 2],
-        )
-    )
-    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
-
-    # gray-vs-chroma and gray-vs-gray keep the upstream hsum convention
-    g = np.stack(
-        [rng.uniform(0, 100, 1000), np.zeros(1000), np.zeros(1000)], -1
-    ).astype(np.float32)
-    ch = np.stack(
-        [rng.uniform(0, 100, 1000), rng.uniform(-80, 80, 1000),
-         rng.uniform(-80, 80, 1000)], -1
-    ).astype(np.float32)
-    for a, b in [(g, ch), (g, g[::-1].copy()), (ch, ch.copy())]:
-        want = np.asarray(color.ciede2000(jnp.asarray(a), jnp.asarray(b)))
-        got = np.asarray(
-            _ciede2000_planes(
-                a[:, 0], a[:, 1], a[:, 2], b[:, 0], b[:, 1], b[:, 2]
-            )
-        )
-        np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)

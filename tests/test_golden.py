@@ -12,10 +12,10 @@ import hashlib
 
 import numpy as np
 
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.state import new_state
-from snesimage_tpu.io.json_out import state_to_json
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.core.state import new_state
+from snesimage.io.json_out import state_to_json
 
 GOLDEN = {
     False: "8fddf7c5a5e35231d504f2a66b97b4cb6df82f68ae9df014a16cee345189cdd3",

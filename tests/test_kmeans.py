@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from snesimage_tpu.ops.kmeans import lloyd_kmeans
+from snesimage.ops.kmeans import lloyd_kmeans
 
 
 def _clustered_data(rng, centers, n_per):
@@ -123,10 +123,10 @@ def test_init_pipeline_matches_cpp_oracle(rng, perceptual, nes):
     fill, per-subpalette pixel k-means, undithered remap — must agree
     with the independent scalar C++ oracle (native/oracle.cpp) on a
     well-separated fixture."""
-    from snesimage_tpu.config import QuantConfig
-    from snesimage_tpu.core import pipeline
-    from snesimage_tpu.core.state import new_state
-    from snesimage_tpu.native import (
+    from snesimage.config import QuantConfig
+    from snesimage.core import pipeline
+    from snesimage.core.state import new_state
+    from snesimage.native import (
         oracle_assign_tiles,
         oracle_recalculate,
         oracle_remap,

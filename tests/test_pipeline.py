@@ -7,12 +7,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.refine import error_of, make_reference_pyramid
-from snesimage_tpu.core.state import new_state
-from snesimage_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from snesimage_tpu.io.json_out import state_to_json, state_to_json_obj
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.core.refine import error_of, make_reference_pyramid
+from snesimage.core.state import new_state
+from snesimage.io.checkpoint import load_checkpoint, save_checkpoint
+from snesimage.io.json_out import state_to_json, state_to_json_obj
 
 
 def _cfg(**kw):
@@ -204,7 +204,7 @@ def test_json_tiles_row_major_within_tile(small_image):
 
 
 def test_preview_renders(small_image, tmp_path):
-    from snesimage_tpu.preview import render_preview, save_preview
+    from snesimage.preview import render_preview, save_preview
 
     cfg = _cfg()
     st = new_state(small_image, cfg)
@@ -245,8 +245,8 @@ def test_non_square_image(rng):
 
 
 def test_non_square_dithered_matches_oracle(rng):
-    from snesimage_tpu.native import oracle_remap
-    from snesimage_tpu.ops.dither import remap_dithered
+    from snesimage.native import oracle_remap
+    from snesimage.ops.dither import remap_dithered
 
     h, w = 24, 48
     rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
@@ -304,7 +304,7 @@ def test_stop_rule_survives_weak_random_steps():
 
 def test_config_guard_perceptual_prescreen_full():
     """perceptual_palettes with 0 < prescreen_full < 4 is a measured
-    quality loss (BENCHMARKS.md); the config auto-bumps it to 4."""
+    quality loss; the config auto-bumps it to 4."""
     cfg = QuantConfig(perceptual_palettes=True, prescreen=8, prescreen_full=2)
     assert cfg.prescreen_full == 4
     cfg = QuantConfig(perceptual_palettes=True, prescreen=8, prescreen_full=5)
@@ -317,7 +317,7 @@ def test_config_guard_perceptual_prescreen_full():
 
 def test_config_guard_gate_margin_deep_runs():
     """gate_margin with channel_explore or a tight converge_tol is a
-    measured quality loss (premature plateau, BENCHMARKS.md); the config
+    measured quality loss (premature plateau); the config
     warns and disables the gate."""
     cfg = QuantConfig(prescreen=8, prescreen_full=2, gate_margin=0.01,
                       channel_explore=16)
@@ -332,7 +332,7 @@ def test_config_guard_gate_margin_deep_runs():
 
 def test_config_guard_gate_window_stacking():
     """gate_margin stacked with channel_window is a measured wall-clock
-    LOSS (11-12 steps vs 7-8 for either alone, BENCHMARKS.md); the config
+    LOSS (11-12 steps vs 7-8 for either alone); the config
     warns and disables the window, keeping the gate."""
     cfg = QuantConfig(prescreen=8, prescreen_full=2, gate_margin=0.01,
                       schedule="channel", channel_window=4)
@@ -347,34 +347,33 @@ def test_config_guard_gate_window_stacking():
 
 def test_config_warns_experimental_knobs(caplog):
     """The two measured-loss knobs kept for experimentation (gate_coarse,
-    prescreen_pre — both validated as NOT equal-or-better, BENCHMARKS.md)
+    prescreen_pre — both validated as NOT equal-or-better)
     warn when selected so users cannot mistake them for tuned options;
     the values themselves are kept."""
     import logging
 
-    with caplog.at_level(logging.WARNING, logger="snesimage_tpu"):
+    with caplog.at_level(logging.WARNING, logger="snesimage"):
         cfg = QuantConfig(prescreen=8, prescreen_full=2, gate_margin=0.01,
                           gate_coarse=True)
     assert cfg.gate_coarse
     assert any("gate_coarse" in r.message for r in caplog.records)
 
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="snesimage_tpu"):
+    with caplog.at_level(logging.WARNING, logger="snesimage"):
         cfg = QuantConfig(prescreen=8, prescreen_full=2, prescreen_pre=16)
     assert cfg.prescreen_pre == 16
     assert any("prescreen_pre" in r.message for r in caplog.records)
 
-    # dither_proxy: measured NEGATIVE on TPU (slower per step + perturbed
-    # descent, BENCHMARKS.md "Dither proxy prescreen") — warns too.
+    # dither_proxy: perturbed descent in both directions — warns too.
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="snesimage_tpu"):
+    with caplog.at_level(logging.WARNING, logger="snesimage"):
         cfg = QuantConfig(dither=True, dither_proxy=8)
     assert cfg.dither_proxy == 8
     assert any("dither_proxy" in r.message for r in caplog.records)
 
     # the tuned fast config stays silent
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="snesimage_tpu"):
+    with caplog.at_level(logging.WARNING, logger="snesimage"):
         QuantConfig(prescreen=8, prescreen_full=2, gate_margin=0.01,
                     converge_tol=0.5, schedule="channel")
     assert not caplog.records

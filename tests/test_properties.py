@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from snesimage_tpu.ops import color
+from snesimage.ops import color
 
 u5 = st.integers(0, 31)
 u8 = st.integers(0, 255)
@@ -62,7 +62,7 @@ def test_nes_projection_idempotent(c):
 @given(st.integers(0, 2**31 - 1))
 @settings(max_examples=10, deadline=None)
 def test_remap_output_ranges(seed):
-    from snesimage_tpu.ops.remap import remap_undithered
+    from snesimage.ops.remap import remap_undithered
 
     rng = np.random.default_rng(seed)
     rgba = rng.integers(0, 256, (16, 16, 4)).astype(np.uint8)

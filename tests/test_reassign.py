@@ -4,11 +4,11 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.reassign import auto_reassign_tiles
-from snesimage_tpu.core.refine import error_of, full_remap, make_reference_pyramid
-from snesimage_tpu.core.state import new_state
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.core.reassign import auto_reassign_tiles
+from snesimage.core.refine import error_of, full_remap, make_reference_pyramid
+from snesimage.core.state import new_state
 
 
 def _two_region_image():

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.constants import NES_PALETTE_5BIT
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.refine import (
+from snesimage.config import QuantConfig
+from snesimage.constants import NES_PALETTE_5BIT
+from snesimage.core import pipeline
+from snesimage.core.refine import (
     candidate_errors,
     error_of,
     full_remap,
@@ -19,7 +19,7 @@ from snesimage_tpu.core.refine import (
     refine_slot_nes,
     refine_slot_random,
 )
-from snesimage_tpu.core.state import new_state
+from snesimage.core.state import new_state
 
 
 def _prepped(small_image, **kw):
@@ -153,7 +153,7 @@ def test_sweep_matches_per_slot_path(small_image):
     legitimately diverge slot by slot. The invariant that IS guaranteed:
     same visits, same candidate draws, and both paths only ever accept
     strict improvements — so final errors must agree closely."""
-    from snesimage_tpu.core.refine import sweep_random, sweep_channel, sweep_nes
+    from snesimage.core.refine import sweep_random, sweep_channel, sweep_nes
 
     st, cfg = _prepped(small_image)
     refp = make_reference_pyramid(st)
@@ -199,7 +199,7 @@ def test_sweep_matches_per_slot_path(small_image):
 
 @pytest.mark.slow
 def test_sweep_trajectory_variants(small_image, poster_image):
-    """Round-4 strengthening (VERDICT r3 item 7): the <=1-slot
+    """Strengthened check: the <=1-slot
     sweep-vs-replay bound extends to a dithered fixture, a second content
     type (flat poster art), and the windowed and gated sweep variants.
 
@@ -209,7 +209,7 @@ def test_sweep_trajectory_variants(small_image, poster_image):
     acceptance — so only f32 fusion differences between the two XLA
     compilations can flip near-tie selections (see
     test_sweep_matches_per_slot_path)."""
-    from snesimage_tpu.core.refine import (
+    from snesimage.core.refine import (
         _gating_active,
         _init_cache,
         _slot_channel,
@@ -266,7 +266,7 @@ def test_sweep_trajectory_variants(small_image, poster_image):
 
 
 def test_sweep_nes_matches_per_slot(small_image):
-    from snesimage_tpu.core.refine import sweep_nes
+    from snesimage.core.refine import sweep_nes
 
     st, cfg = _prepped(small_image, nes=True)
     refp = make_reference_pyramid(st)
@@ -283,7 +283,7 @@ def test_sweep_nes_matches_per_slot(small_image):
 def test_final_map_equals_full_remap(small_image):
     """The incremental final_map applied after a slot visit must be
     bit-identical to a full remap with the updated palette."""
-    from snesimage_tpu.ops.remap import remap_undithered
+    from snesimage.ops.remap import remap_undithered
 
     for perceptual in (False, True):
         st, cfg = _prepped(small_image, perceptual_palettes=perceptual)
@@ -334,7 +334,7 @@ def test_prescreen_matches_full_selection(small_image, rng):
         prescreen=8, prescreen_full=3,
     )
     # Third level: 1/8-res pre-rank keeps the top 16 before the
-    # quarter-res coarse stage (VERDICT r3 item 2).
+    # quarter-res coarse stage.
     cfg_pre3 = QuantConfig(
         subpalette_count=2, subpalette_size=4, width=64, height=64,
         prescreen=8, prescreen_full=3, prescreen_pre=16,
@@ -363,7 +363,7 @@ def test_carried_base_matches_legacy(small_image):
     carried error of the current state) must pick the same color as the
     legacy in-batch-baseline visit across prescreen modes, and the error
     it carries forward must equal the exact error of its resulting state."""
-    from snesimage_tpu.core.refine import _slot_channel, frame_error_fused
+    from snesimage.core.refine import _slot_channel, frame_error_fused
 
     cases = [
         ({}, [(0, 1, 0), (1, 2, 1), (1, 3, 2)]),
@@ -397,7 +397,7 @@ def test_channel_explore_sweep(small_image):
     monotone within a trajectory), the fused sweep and the per-slot path
     draw identical candidates (same split discipline), and E=0 with a key
     equals the keyless deterministic sweep."""
-    from snesimage_tpu.core.refine import sweep_channel
+    from snesimage.core.refine import sweep_channel
 
     st, cfg0 = _prepped(small_image)
     cfg = QuantConfig(
@@ -441,7 +441,7 @@ def test_channel_window_schedule_and_stop():
     """Windowed channel descent (QuantConfig.channel_window): the
     warmup/period pattern, and the rule that windowed sweeps never fire
     the convergence stop (only exhaustive sweeps can)."""
-    from snesimage_tpu.core.pipeline import _is_window_step
+    from snesimage.core.pipeline import _is_window_step
 
     cfg = QuantConfig(
         subpalette_count=2, subpalette_size=4, width=64, height=64,
@@ -524,7 +524,7 @@ def test_gate_margin_slot_visit(small_image):
     error) and return the accepted state's scale-0 weighted sum as the
     new carry; a prohibitively large margin must close the gate — visit
     rejected with state, error, and carry unchanged."""
-    from snesimage_tpu.core.refine import (
+    from snesimage.core.refine import (
         _gating_active,
         _slot_channel,
         frame_error_fused,
@@ -581,14 +581,14 @@ def test_gate_requires_separate_scale0_stage(small_image):
     skip, so gating must deactivate instead of tripping the gated path's
     m < k assertion (round 5; the perceptual auto-bump of prescreen_full
     could create this combination from a valid user config)."""
-    from snesimage_tpu.core.refine import (
+    from snesimage.core.refine import (
         _gating_active,
         frame_error_fused,
         make_reference_pyramid,
         sweep_channel,
     )
-    from snesimage_tpu.core.state import new_state
-    from snesimage_tpu.core import pipeline
+    from snesimage.core.state import new_state
+    from snesimage.core import pipeline
 
     cfg = QuantConfig(subpalette_count=2, subpalette_size=3, width=64,
                       height=64, schedule="channel", prescreen=4,
@@ -609,7 +609,7 @@ def test_gate_margin_sweep_quality(small_image):
     error on the fixture (the gate only skips visits whose predicted
     improvement is below the margin) and never worsen the incoming
     error."""
-    from snesimage_tpu.core.refine import sweep_channel, frame_error_fused
+    from snesimage.core.refine import sweep_channel, frame_error_fused
 
     st, cfg0 = _prepped(small_image, prescreen=8, prescreen_full=3)
     cfg1 = QuantConfig(
@@ -630,7 +630,7 @@ def test_accept_margin(small_image):
     """QuantConfig.accept_margin: a prohibitive threshold rejects every
     candidate (state unchanged, carried error preserved); margin 0 is
     bit-identical to the default strict-less-than rule."""
-    from snesimage_tpu.core.refine import _slot_channel, frame_error_fused
+    from snesimage.core.refine import _slot_channel, frame_error_fused
 
     st, cfg0 = _prepped(small_image)
     cfg_hi = QuantConfig(
@@ -722,7 +722,7 @@ def test_gate_coarse_open_and_closed(small_image):
     must reject the visit with state, error, and carry unchanged — and
     skip the finalist pipeline entirely (structurally identical reject
     semantics to the rank1 gate)."""
-    from snesimage_tpu.core.refine import (
+    from snesimage.core.refine import (
         _gating_active,
         _slot_channel,
         frame_error_fused,
@@ -812,7 +812,7 @@ def test_dither_proxy_structure_and_regret(small_image, rng):
     every finite entry equals the unproxied exact dithered score for
     that candidate, and the proxy's selected winner has bounded regret
     vs full dithered scoring on this fixture."""
-    from snesimage_tpu.core.refine import _candidate_errors_dithered
+    from snesimage.core.refine import _candidate_errors_dithered
 
     st, cfg0 = _prepped(small_image, dither=True, prescreen=8,
                         prescreen_full=2)

@@ -2,12 +2,13 @@
 red-mean path, tolerance-checked for f32 CIEDE2000)."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from snesimage_tpu.native import oracle_remap
-from snesimage_tpu.ops.color import expand_5bit_to_8bit
-from snesimage_tpu.ops.dither import remap_dithered
-from snesimage_tpu.ops.remap import remap_undithered, render_rgb8
+from snesimage.native import oracle_remap
+from snesimage.ops.color import expand_5bit_to_8bit
+from snesimage.ops.dither import remap_dithered
+from snesimage.ops.remap import remap_undithered, render_rgb8
 
 
 def _setup(rng, h=32, w=32, c=2, s=4):
@@ -72,8 +73,8 @@ def test_dithered_zero_weights_equals_undithered(rng):
     """With dithering disabled the reference still runs the scan with zero
     weights (src/lib.rs:426-432); our parallel remap must equal the scan."""
     rgba, tp, pal = _setup(rng)
-    import snesimage_tpu.ops.dither as dither_mod
-    import snesimage_tpu.constants as consts
+    import snesimage.ops.dither as dither_mod
+    import snesimage.constants as consts
 
     # Run the wavefront scan with zeroed weights via monkeypatch-free path:
     # the oracle with dither=False IS the zero-weight scan.
@@ -159,50 +160,10 @@ def test_candidate_vmap_batches(rng):
         np.testing.assert_array_equal(np.asarray(got[i]), want)
 
 
-def test_pallas_dither_kernel_matches_oracle(rng):
-    """The fused Pallas wavefront kernel (interpret mode) must agree with
-    the serial C++ oracle and implement the candidate-override semantics."""
-    import jax
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import expand_5bit_to_8bit
-    from snesimage_tpu.ops.dither import _prep_skewed, _skew_indices
-    from snesimage_tpu.ops.pallas_dither import dither_remap_candidates
-
-    h = w = 16
-    rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
-    rgba[..., 3] = 255
-    rgba[0:8, 0:8, 3] = 0
-    tp = rng.integers(0, 2, (h // 8, w // 8)).astype(np.int32)
-    pal = rng.integers(0, 32, (2, 4, 3)).astype(np.int32)
-    p, i = 1, 2
-    cands = rng.integers(0, 32, (3, 3)).astype(np.int32)
-
-    orig_sk, entries_cm, tp_sk, aff_sk, alpha_sk, xof_sk, (hh, ww, _) = (
-        _prep_skewed(
-            jnp.asarray(rgba[..., :3]), jnp.asarray(rgba[..., 3]),
-            jnp.asarray(tp), jnp.asarray(pal), p,
-        )
-    )
-    cand8 = expand_5bit_to_8bit(jnp.asarray(cands)).astype(jnp_.float32)
-    out = dither_remap_candidates(
-        orig_sk, entries_cm, tp_sk, aff_sk, alpha_sk, xof_sk, cand8, i,
-        img_w=w, interpret=True,
-    )
-    yy, cc = _skew_indices(h, w)
-    maps = np.asarray(jnp_.swapaxes(out, 1, 2))[:, np.asarray(yy), np.asarray(cc)]
-
-    for b, c5 in enumerate(cands):
-        pal_b = pal.copy()
-        pal_b[p, i] = c5
-        want = oracle_remap(rgba, tp, pal_b, dither=True, perceptual=False)
-        agree = (maps[b] == want).mean()
-        assert agree > 0.98, f"candidate {b}: agreement {agree}"
-
-
 def test_dither_candidates_xla_fallback_matches_per_palette(rng):
-    """On CPU, dither_candidates vmaps the scan; results must equal
-    remapping each candidate palette individually."""
-    from snesimage_tpu.ops.dither import dither_candidates
+    """dither_candidates vmaps the scan over candidates; results must
+    equal remapping each candidate palette individually."""
+    from snesimage.ops.dither import dither_candidates
 
     rgba, tp, pal = _setup(rng, h=16, w=16, c=2, s=3)
     cands = jnp.asarray(rng.integers(0, 32, (2, 3)), dtype=jnp.int32)
@@ -226,8 +187,7 @@ def test_dither_candidates_xla_fallback_matches_per_palette(rng):
 
 
 def test_dithered_perceptual_matches_oracle(rng):
-    """The perceptual+dither combination (XLA scan path everywhere; the
-    Pallas kernel is red-mean-only) against the f64 oracle."""
+    """The perceptual+dither combination against the f64 oracle."""
     rgba, tp, pal = _setup(rng, h=16, w=16, c=2, s=3)
     want = oracle_remap(rgba, tp, pal, dither=True, perceptual=True)
     got = np.asarray(
@@ -240,235 +200,88 @@ def test_dithered_perceptual_matches_oracle(rng):
     assert agree > 0.97, f"agreement {agree}"
 
 
-def test_srgb_poly_decode_matches_lut():
-    """The in-kernel polynomial sRGB decode (ops/pallas_dither.py) must
-    match the exact u8 LUT to <5e-6 relative over all 256 codes."""
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import srgb_u8_to_linear
-    from snesimage_tpu.ops.pallas_dither import _srgb_decode_plane
-
-    v = np.arange(256, dtype=np.float32)
-    got = np.asarray(_srgb_decode_plane(jnp_.asarray(v)))
-    want = np.asarray(srgb_u8_to_linear(jnp_.arange(256)))
-    rel = np.abs(got - want) / np.maximum(want, 1e-9)
-    assert rel.max() < 5e-6, rel.max()
-
-
-def test_lab_planes_match_reference_conversion(rng):
-    """In-kernel plane-form CIELAB (polynomial decode + Newton cbrt) vs
-    ops/color.py srgb_u8_to_lab (LUT decode): max abs error well under
-    CIEDE2000 near-tie scales."""
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import srgb_u8_to_lab
-    from snesimage_tpu.ops.pallas_dither import _lab_planes
-
-    rgb = rng.integers(0, 256, (64, 3)).astype(np.int32)
-    want = np.asarray(srgb_u8_to_lab(jnp_.asarray(rgb)))
-    planes = _lab_planes(
-        jnp_.asarray(rgb[:, 0].astype(np.float32))[None, :],
-        jnp_.asarray(rgb[:, 1].astype(np.float32))[None, :],
-        jnp_.asarray(rgb[:, 2].astype(np.float32))[None, :],
-    )
-    got = np.stack([np.asarray(p)[0] for p in planes], axis=-1)
-    assert np.abs(got - want).max() < 2e-3, np.abs(got - want).max()
-
-
-def test_pallas_dither_kernel_perceptual_matches_oracle(rng):
-    """The CIEDE2000 wavefront kernel variant (interpret mode) must agree
-    with the serial C++ oracle's perceptual dither path (near-tie flips
-    from the polynomial-vs-LUT decode difference are tolerated)."""
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import expand_5bit_to_8bit, srgb_u8_to_lab
-    from snesimage_tpu.ops.dither import _prep_skewed, _skew_indices
-    from snesimage_tpu.ops.pallas_dither import dither_remap_candidates
-
-    h = w = 16
+def _dither_setup(rng, h=16, w=16, c=2, s=4):
     rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
     rgba[..., 3] = 255
     rgba[0:8, 0:8, 3] = 0
-    tp = rng.integers(0, 2, (h // 8, w // 8)).astype(np.int32)
-    pal = rng.integers(0, 32, (2, 4, 3)).astype(np.int32)
-    p, i = 1, 2
-    cands = rng.integers(0, 32, (2, 3)).astype(np.int32)
+    tp = rng.integers(0, c, (h // 8, w // 8)).astype(np.int32)
+    pal = rng.integers(0, 32, (c, s, 3)).astype(np.int32)
+    return rgba, tp, pal
 
-    orig_sk, entries_cm, tp_sk, aff_sk, alpha_sk, xof_sk, (hh, ww, _) = (
-        _prep_skewed(
+
+@pytest.mark.parametrize("perceptual,bound", [(False, 0.98), (True, 0.95)])
+def test_dither_candidates_matches_oracle(rng, perceptual, bound):
+    """Every candidate's dithered map (slot (p, i) overridden by the
+    candidate color) must agree with the serial C++ oracle run on that
+    candidate's palette."""
+    from snesimage.ops.dither import dither_candidates
+
+    rgba, tp, pal = _dither_setup(rng)
+    p, i = 1, 2
+    cands = rng.integers(0, 32, (3, 3)).astype(np.int32)
+    maps = np.asarray(
+        dither_candidates(
             jnp.asarray(rgba[..., :3]), jnp.asarray(rgba[..., 3]),
-            jnp.asarray(tp), jnp.asarray(pal), p,
+            jnp.asarray(tp), jnp.asarray(pal), p, i, jnp.asarray(cands),
+            perceptual,
         )
     )
-    cand8i = expand_5bit_to_8bit(jnp.asarray(cands))
-    ent8i = expand_5bit_to_8bit(jnp.asarray(pal))
-    s = ent8i.shape[1]
-    entries_lab = jnp_.transpose(srgb_u8_to_lab(ent8i), (0, 2, 1)).reshape(
-        -1, 3 * s
-    )
-    out = dither_remap_candidates(
-        orig_sk, entries_cm, tp_sk, aff_sk, alpha_sk, xof_sk,
-        cand8i.astype(jnp_.float32), i, entries_lab, srgb_u8_to_lab(cand8i),
-        img_w=w, interpret=True,
-    )
-    yy, cc = _skew_indices(h, w)
-    maps = np.asarray(jnp_.swapaxes(out, 1, 2))[:, np.asarray(yy), np.asarray(cc)]
-
     for b, c5 in enumerate(cands):
         pal_b = pal.copy()
         pal_b[p, i] = c5
-        want = oracle_remap(rgba, tp, pal_b, dither=True, perceptual=True)
+        want = oracle_remap(rgba, tp, pal_b, dither=True, perceptual=perceptual)
         agree = (maps[b] == want).mean()
-        assert agree > 0.95, f"candidate {b}: agreement {agree}"
+        assert agree > bound, f"candidate {b}: agreement {agree}"
 
 
-def test_pallas_dither_kernel_vmap_over_images(rng):
-    """jax.vmap over a leading image axis must fold into the kernel's
-    image grid dimension (custom batching rule) and reproduce per-image
-    single calls exactly."""
+def test_dither_candidates_vmap_over_images(rng):
+    """jax.vmap over a leading image axis (the batched paths) must
+    reproduce per-image calls exactly."""
     import jax
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import expand_5bit_to_8bit
-    from snesimage_tpu.ops.dither import _prep_skewed
-    from snesimage_tpu.ops.pallas_dither import dither_remap_candidates
 
-    h = w = 16
-    n = 2
-    imgs, pals, tps = [], [], []
-    for k in range(n):
-        rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
-        rgba[..., 3] = 255
-        imgs.append(rgba)
-        pals.append(rng.integers(0, 32, (2, 4, 3)).astype(np.int32))
-        tps.append(rng.integers(0, 2, (h // 8, w // 8)).astype(np.int32))
+    from snesimage.ops.dither import dither_candidates
+
+    setups = [_dither_setup(rng) for _ in range(2)]
+    imgs, tps, pals = (np.stack(x) for x in zip(*setups))
+    cands = jnp.asarray(rng.integers(0, 32, (3, 3)).astype(np.int32))
     p, i = 0, 1
-    cands = rng.integers(0, 32, (3, 3)).astype(np.int32)
-    cand8 = expand_5bit_to_8bit(jnp.asarray(cands)).astype(jnp_.float32)
 
-    prepped = [
-        _prep_skewed(
-            jnp.asarray(im[..., :3]), jnp.asarray(im[..., 3]),
-            jnp.asarray(tp), jnp.asarray(pal), p,
-        )[:6]
-        for im, tp, pal in zip(imgs, tps, pals)
-    ]
-    stacked = [jnp_.stack([pr[j] for pr in prepped]) for j in range(6)]
-
-    batched = jax.vmap(
-        lambda o, e, t, a, al, x: dither_remap_candidates(
-            o, e, t, a, al, x, cand8, i, img_w=w, interpret=True
-        )
-    )(*stacked)
-    for k in range(n):
-        single = dither_remap_candidates(
-            *prepped[k], cand8, i, img_w=w, interpret=True
-        )
-        np.testing.assert_array_equal(
-            np.asarray(batched[k]), np.asarray(single)
+    def one(img, tp, pal):
+        return dither_candidates(
+            img[..., :3], img[..., 3], tp, pal, p, i, cands, False
         )
 
+    batched = jax.vmap(one)(jnp.asarray(imgs), jnp.asarray(tps),
+                            jnp.asarray(pals))
+    for k in range(2):
+        single = one(jnp.asarray(imgs[k]), jnp.asarray(tps[k]),
+                     jnp.asarray(pals[k]))
+        np.testing.assert_array_equal(np.asarray(batched[k]),
+                                      np.asarray(single))
 
-def test_pallas_dither_kernel_seed_fold_matches_per_seed(rng):
+
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_dither_candidates_seed_vmap_matches_per_seed(rng, perceptual):
     """The portfolio batching pattern — ONE shared image, vmap only over
-    per-seed palette tables + candidate colors — must take the seed-fold
-    lowering (seeds folded onto the kernel's candidate axis) and
-    reproduce per-seed single calls exactly. b0=96 x g=3 also exercises
-    the 256-row sub-fold split (two launches, concatenated)."""
+    per-seed palettes and candidate colors — must reproduce per-seed
+    calls exactly."""
     import jax
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import expand_5bit_to_8bit
-    from snesimage_tpu.ops.dither import _prep_skewed
-    from snesimage_tpu.ops.pallas_dither import dither_remap_candidates
 
-    h = w = 16
-    g, b0 = 3, 96
-    rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
-    rgba[..., 3] = 255
-    rgba[0:8, 8:16, 3] = 0
-    tp = rng.integers(0, 2, (h // 8, w // 8)).astype(np.int32)
-    pals = rng.integers(0, 32, (g, 2, 4, 3)).astype(np.int32)
+    from snesimage.ops.dither import dither_candidates
+
+    rgba, tp, _ = _dither_setup(rng)
+    g = 3
+    pals = jnp.asarray(rng.integers(0, 32, (g, 2, 4, 3)).astype(np.int32))
+    cands = jnp.asarray(rng.integers(0, 32, (g, 5, 3)).astype(np.int32))
+    rgb, alpha, tpj = (jnp.asarray(rgba[..., :3]), jnp.asarray(rgba[..., 3]),
+                       jnp.asarray(tp))
     p, i = 1, 2
-    cands = rng.integers(0, 32, (g, b0, 3)).astype(np.int32)
-    cand8 = expand_5bit_to_8bit(jnp.asarray(cands)).astype(jnp_.float32)
 
-    # Image-derived operands are shared; only the entry table is per-seed.
-    shared = _prep_skewed(
-        jnp.asarray(rgba[..., :3]), jnp.asarray(rgba[..., 3]),
-        jnp.asarray(tp), jnp.asarray(pals[0]), p,
-    )[:6]
-    orig_sk, _, tp_sk, aff_sk, alpha_sk, xof_sk = shared
+    def one(pal, c):
+        return dither_candidates(rgb, alpha, tpj, pal, p, i, c, perceptual)
 
-    def ent_cm(pal):
-        e8 = expand_5bit_to_8bit(jnp.asarray(pal)).astype(jnp_.float32)
-        s = e8.shape[1]
-        return jnp_.transpose(e8, (0, 2, 1)).reshape(-1, 3 * s)
-
-    ents = jnp_.stack([ent_cm(pals[k]) for k in range(g)])
-
-    folded = jax.vmap(
-        lambda e, c: dither_remap_candidates(
-            orig_sk, e, tp_sk, aff_sk, alpha_sk, xof_sk, c, i,
-            img_w=w, interpret=True,
-        )
-    )(ents, cand8)
+    folded = jax.vmap(one)(pals, cands)
     for k in range(g):
-        single = dither_remap_candidates(
-            orig_sk, ents[k], tp_sk, aff_sk, alpha_sk, xof_sk, cand8[k], i,
-            img_w=w, interpret=True,
-        )
         np.testing.assert_array_equal(
-            np.asarray(folded[k]), np.asarray(single)
-        )
-
-
-def test_pallas_dither_kernel_seed_fold_perceptual(rng):
-    """Seed-fold lowering for the CIEDE2000 kernel variant: per-seed Lab
-    tables ride the same VMEM seed-column layout."""
-    import jax
-    import jax.numpy as jnp_
-    from snesimage_tpu.ops.color import expand_5bit_to_8bit, srgb_u8_to_lab
-    from snesimage_tpu.ops.dither import _prep_skewed
-    from snesimage_tpu.ops.pallas_dither import dither_remap_candidates
-
-    h = w = 16
-    g, b0 = 2, 3
-    rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
-    rgba[..., 3] = 255
-    tp = rng.integers(0, 2, (h // 8, w // 8)).astype(np.int32)
-    pals = rng.integers(0, 32, (g, 2, 4, 3)).astype(np.int32)
-    p, i = 0, 1
-    cands = rng.integers(0, 32, (g, b0, 3)).astype(np.int32)
-    cand8i = expand_5bit_to_8bit(jnp.asarray(cands))
-
-    shared = _prep_skewed(
-        jnp.asarray(rgba[..., :3]), jnp.asarray(rgba[..., 3]),
-        jnp.asarray(tp), jnp.asarray(pals[0]), p,
-    )[:6]
-    orig_sk, _, tp_sk, aff_sk, alpha_sk, xof_sk = shared
-
-    def tables(pal):
-        e8 = expand_5bit_to_8bit(jnp.asarray(pal))
-        s = e8.shape[1]
-        cm = jnp_.transpose(
-            e8.astype(jnp_.float32), (0, 2, 1)
-        ).reshape(-1, 3 * s)
-        lab = jnp_.transpose(srgb_u8_to_lab(e8), (0, 2, 1)).reshape(
-            -1, 3 * s
-        )
-        return cm, lab
-
-    ents, labs = map(jnp_.stack, zip(*[tables(pals[k]) for k in range(g)]))
-    cand_lab = jax.vmap(srgb_u8_to_lab)(cand8i)
-
-    folded = jax.vmap(
-        lambda e, c, el, cl: dither_remap_candidates(
-            orig_sk, e, tp_sk, aff_sk, alpha_sk, xof_sk,
-            c.astype(jnp_.float32), i, el, cl, img_w=w, interpret=True,
-        )
-    )(ents, cand8i, labs, cand_lab)
-    for k in range(g):
-        single = dither_remap_candidates(
-            orig_sk, ents[k], tp_sk, aff_sk, alpha_sk, xof_sk,
-            cand8i[k].astype(jnp_.float32), i, labs[k], cand_lab[k],
-            img_w=w, interpret=True,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(folded[k]), np.asarray(single)
+            np.asarray(folded[k]), np.asarray(one(pals[k], cands[k]))
         )

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from snesimage_tpu.ops.ssimulacra2 import (
+from snesimage.ops.ssimulacra2 import (
     blur,
     downsample2,
     linear_rgb_to_positive_xyb,
@@ -160,10 +160,9 @@ def test_golden_score_values():
 
 @pytest.mark.slow
 def test_multiscale_fused_block_matches_xla(rng):
-    """The multi-scale fused kernel (interpret mode on CPU) must match the
-    XLA feature path: in-kernel XYB conversion (exp/log cbrt), blur,
-    feature maps, and in-kernel downsampling across scales."""
-    from snesimage_tpu.ops.ssimulacra2 import (
+    """The channel-major feature block (start scale, scale count, input
+    resolution) must match the feature path it wraps, scale for scale."""
+    from snesimage.ops.ssimulacra2 import (
         fused_scale_feature_block,
         reference_pyramid,
         scale_features,
@@ -184,7 +183,7 @@ def test_multiscale_fused_block_matches_xla(rng):
         else:
             fr, fr_cmaj = frames, frames_cmaj
         got = np.asarray(
-            fused_scale_feature_block(refp, fr_cmaj, start, num, interpret=True)
+            fused_scale_feature_block(refp, fr_cmaj, start, num)
         )
         want = np.asarray(
             scale_features(

@@ -2,9 +2,9 @@
 QuantConfig.dither_proxy): run-level finals of the dithered fast config
 with the proxy off vs K=8/12, across contents. The proxy ranks a
 dithered visit's candidates by their exact undithered coarse-scale
-score and wavefront-dithers only the top K — CPU decides QUALITY (the
-wavefront here is the XLA scan fallback, so CPU wall-times are NOT the
-TPU story; tools/tpu_queue.sh times it on the chip).
+score and wavefront-dithers only the top K — CPU decides QUALITY (CPU
+wall-times are not device times; time it with bench.py-style runs on
+the GPU).
 
 Usage: python tools/dither_proxy_exp.py [K ...] [--contents a,b]
 """
@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.utils.cache import enable_compile_cache
 
 BASE = dict(
     subpalette_count=8, subpalette_size=15, max_steps=6, converge_tol=0.5,

@@ -1,4 +1,4 @@
-"""Differentiable palette polish experiment (round 5, VERDICT r4 item 6).
+"""Differentiable palette polish experiment (round 5).
 
 A quality lever the reference cannot reach (its metric is a black-box
 Rust crate, /root/reference/src/lib.rs:503-548): our SSIMULACRA2 is
@@ -43,16 +43,16 @@ import numpy as np
 import optax
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline, refine
-from snesimage_tpu.ops.color import (
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline, refine
+from snesimage.ops.color import (
     expand_5bit_to_8bit,
     srgb_u8_to_linear,
 )
-from snesimage_tpu.ops.ssimulacra2 import ssimulacra2_from_ref_linear
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.ops.ssimulacra2 import ssimulacra2_from_ref_linear
+from snesimage.utils.cache import enable_compile_cache
 
-# The in-band recipe (round-5 chip measurement, tools/inband_exp.py):
+# The in-band recipe (the 'balanced' profile, tools/inband_exp.py):
 # channel descent + prescreen 8/2 + 16 explore candidates, fixed budget.
 RECIPE = dict(
     subpalette_count=8, subpalette_size=15, seed=0, schedule="channel",

@@ -1,4 +1,4 @@
-"""Hybrid two-phase schedule experiment (round 4, VERDICT item 2).
+"""Hybrid two-phase schedule experiment (round 4).
 
 Phase 1 = the headline fast config (gated channel descent, tol 0.5) run
 to its plateau; phase 2 = the explore/quality config (channel-explore
@@ -7,7 +7,7 @@ the quality config's early sweeps pay explore-candidate cost for work
 the gated fast sweeps do cheaper; chaining configs should land in the
 same quality basin (<= 115.8 on the bench image, the reference
 schedule's seed band) at a fraction of the quality config's wall-clock
-(CPU run decides QUALITY; the TPU queue times it).
+(the CPU run decides QUALITY; time it on the GPU).
 
 Both phases run as chained fused programs with ONE host sync at the end
 (phase 2 consumes phase 1's on-device step count as its dynamic RNG
@@ -15,7 +15,7 @@ start_step, so no fetch is needed between phases).
 
 Controls (same contents, quality config alone, CPU):
 gradient 115.04 / photo 87.95 / poster 26.06 / text-ui 18.77
-(/tmp/gate_explore.log gate=0.0 rows, = BENCHMARKS.md round-4 re-test).
+(tools/gate_explore_exp.py gate=0.0 rows).
 
 Usage: python tools/hybrid_exp.py [content ...]   (default: all four)
 """
@@ -30,10 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.state import new_state
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.core.state import new_state
+from snesimage.utils.cache import enable_compile_cache
 
 FAST = dict(
     subpalette_count=8, subpalette_size=15, max_steps=10, converge_tol=0.5,

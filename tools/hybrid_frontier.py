@@ -1,17 +1,16 @@
-"""Hybrid frontier sweep (round 5, VERDICT r4 item 1).
+"""Hybrid frontier sweep (round 5).
 
 The full hybrid recipe (fast gated descent to plateau + explore polish,
 tools/hybrid_exp.py) measures final error 112.53 on the bench image on
-CPU — well inside the reference schedule's seed band (113.37-115.78) —
-at an estimated ~1.6-1.7 s on chip. This sweep probes SHORTER variants
-toward the literal <1 s north star: cap phase 2 at 2-4 explore steps,
+CPU — well inside the reference schedule's seed band (113.37-115.78).
+This sweep probes SHORTER variants: cap phase 2 at 2-4 explore steps,
 stop phase 1 earlier (tol 1.0), and cheaper explore widths. A variant
-is a candidate iff its CPU final stays <= 115.8 (in-band); the TPU
-queue then times the candidates (`--time`: best-of-3 wall-clock each).
+is a candidate iff its CPU final stays <= 115.8 (in-band); `--time`
+then times the candidates on the accelerator (best-of-3 wall-clock).
 
 Usage:
   python tools/hybrid_frontier.py [content ...]       # CPU quality sweep
-  python tools/hybrid_frontier.py --time [content]    # chip timing
+  python tools/hybrid_frontier.py --time [content]    # GPU timing
 """
 import json
 import os
@@ -24,10 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.core.state import new_state
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.core.state import new_state
+from snesimage.utils.cache import enable_compile_cache
 
 FAST = dict(
     subpalette_count=8, subpalette_size=15, max_steps=10, converge_tol=0.5,

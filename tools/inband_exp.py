@@ -1,10 +1,9 @@
-"""In-band (<=115.8) chip-recipe search (round 5, VERDICT r4 item 1).
+"""In-band (<=115.8) accelerator recipe search (round 5).
 
-Round-5 chip runs showed TPU f32 numerics land the gated fast descent
-in a worse basin than CPU (116.85 vs 114.36 on the bench image) and the
-hybrid's explore polish cannot escape it (116.84 vs CPU's 112.53), so
-CPU quality tables do not transfer — the in-band recipe must be found
-ON the chip. This tool runs the candidate recipes with converge_tol=0
+Accelerator f32 numerics can land the gated fast descent in another
+basin than the CPU backend, so CPU quality tables need not transfer —
+the in-band recipe must be found on the device that runs it (not
+measured on the H100). This tool runs the candidate recipes with converge_tol=0
 (fixed budgets) and prints the FULL per-step error trajectory plus
 steady-state wall-clock, so one run per recipe reads off (a) whether it
 crosses 115.8 and (b) at which step — i.e. at what wall-clock a capped
@@ -30,9 +29,9 @@ import time
 import numpy as np
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.utils.cache import enable_compile_cache
 
 BASE = dict(
     subpalette_count=8, subpalette_size=15, seed=0, schedule="channel",

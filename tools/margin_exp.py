@@ -1,6 +1,6 @@
 """Gate/accept-margin experiment harness: timed margin sweeps across
 three content types (gradient / photo-like / flat poster). Produced the
-margin tables in BENCHMARKS.md "Rank1 visit gating". Run from the repo
+rank1-gate margin tables. Run from the repo
 root: python tools/margin_exp.py gate 0.0 0.01 0.05"""
 import json
 import os
@@ -12,9 +12,9 @@ import time
 import numpy as np
 
 from bench import _test_image
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.utils.cache import enable_compile_cache
 
 
 def photo_image(seed=3):

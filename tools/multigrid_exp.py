@@ -28,10 +28,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from bench import _test_image
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline, refine
-from snesimage_tpu.core.state import new_state
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline, refine
+from snesimage.core.state import new_state
+from snesimage.utils.cache import enable_compile_cache
 
 # The 'balanced' recipe's optimizer fields (cli.OPT_PROFILES), budgets
 # supplied per phase.

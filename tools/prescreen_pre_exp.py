@@ -1,4 +1,4 @@
-"""Three-level prescreen timing/quality experiment (TPU).
+"""Three-level prescreen timing/quality experiment (run on the GPU).
 
 Rows: the headline fast config (gate 0.01) and the explore quality
 config, each without / with --prescreen-pre. Prints one JSON line per
@@ -17,9 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import pipeline
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import pipeline
+from snesimage.utils.cache import enable_compile_cache
 
 FAST = dict(
     subpalette_count=8, subpalette_size=15, max_steps=10, converge_tol=0.5,

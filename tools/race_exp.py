@@ -3,12 +3,12 @@
 Question: can a K-seed portfolio be made cheaper by RACING — run all K
 seeds batched for only the first r steps, keep the seed with the lowest
 carried error, and finish the remaining (max_steps - r) steps on that
-single survivor? The full K=2 balanced portfolio costs 3.4 s on the
-chip (BENCHMARKS.md "Seed robustness") because every step pays the K x
-batched cost; racing pays K x for r steps and 1 x after, so it is a win
+single survivor? The full K=2 balanced portfolio pays the K x batched
+cost on every step (its time on the H100 is not measured); racing pays
+K x for r steps and 1 x after, so it is a win
 iff the carried error at step r predicts the final seed ranking.
 
-Two parts, one chip run each:
+Two parts, one GPU run each:
 1. `diagnose`: a K-seed balanced portfolio stepped one fused segment at
    a time, printing the PER-SEED error after every step — reads off the
    earliest step at which argmin(cur) is stable (and how many points a
@@ -40,12 +40,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from margin_exp import CONTENTS
-from snesimage_tpu.config import QuantConfig
-from snesimage_tpu.core import refine
-from snesimage_tpu.core.init import assign_tiles, recalculate_palettes
-from snesimage_tpu.core.state import QuantState, new_state
-from snesimage_tpu.parallel import batch
-from snesimage_tpu.utils.cache import enable_compile_cache
+from snesimage.config import QuantConfig
+from snesimage.core import refine
+from snesimage.core.init import assign_tiles, recalculate_palettes
+from snesimage.core.state import QuantState, new_state
+from snesimage.parallel import batch
+from snesimage.utils.cache import enable_compile_cache
 
 BALANCED = dict(
     subpalette_count=8, subpalette_size=15, schedule="channel",
